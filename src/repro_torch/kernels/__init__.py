@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels of the port.
+
+  * ``safeguard_filter`` — the pairwise-distance pass over the flat
+    ``(m, d_pad)`` accumulator buffer, plain and fused with the windowed
+    accumulate-and-reset (CUDA C++, ``csrc/safeguard_filter.cu``).
+
+Each package ships ``csrc/`` (the CUDA source), ``kernel.py`` (build and
+ctypes binding), ``ops.py`` (checked wrappers, device dispatch, launch
+counts) and ``ref.py`` (the plain PyTorch version).  ``build.py`` compiles
+the sources with ``nvcc`` at first use.
+"""
