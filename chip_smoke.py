@@ -8,21 +8,36 @@ own failure):
   1. print the card's name and power limit (``nvidia-smi``);
   2. build the CUDA kernels from the sources in this checkout (one
      ``nvcc`` per source, all started together);
-  3. hold each kernel against its plain PyTorch version on the card —
-     m in {4, 10, 33}, float32 and bfloat16, a ragged d, the fused update
-     with reset 0 and 1 and a NaN/inf accumulator cleared by the reset,
-     and both kernels at the training slice's shape, where both versions
-     are also held against a float64 sum — and time them with
-     CUDA events beside the plain version, one PyTorch library call and
-     the least time the card could take (the bound);
-  4. run the training CLI's step at full TinyLlama-1.1B width (depth cut
+  3. hold B1 and B2 (``safeguard_filter``) against their plain PyTorch
+     versions on the card — m in {4, 10, 33}, float32 and bfloat16, a
+     ragged d, the fused update with reset 0 and 1 and a NaN/inf
+     accumulator cleared by the reset, and both kernels at the training
+     slice's shape, where both versions are also held against a float64
+     sum — and time them with CUDA events beside the plain version, one
+     PyTorch library call and the least time the card could take (the
+     bound);
+  4. hold B3 (``robust_agg``: coordinate median and trimmed mean) against
+     its plain version, bit for bit — m in {3, 9, 10, 16, 33, 64},
+     float32 and bfloat16, ragged n, trim in {1, 2, 4}, columns with NaN
+     and inf, every leaf of the slice's model at m=10, and one bfloat16
+     (10, 253,755,392) matrix of more than 2**31 elements (a 22-layer
+     stacked MLP leaf) — and time it at the slice's whole gradient (m=10)
+     and at m=9 beside ``torch.median``;
+  5. run the training CLI's step at full TinyLlama-1.1B width (depth cut
      to 2 layers, random weights from seed 0): m=10 workers, 4 Byzantine,
      ``sign_flip`` against ``safeguard_double`` with T0=4 and T1=8, 12
      steps of batch 80 and sequence 64, once per safeguard backend
      (``kernel``, ``kernel_fused``, ``plain``) on the same parameters and
      batches.  It asserts finite losses, 24 launches of the backend's
      kernel, identical per-step good masks and agreeing A/B buffers;
-  5. print one JSON line per kernel table and, last, the device line.
+  6. run the paper's seven historyless baselines on the same model under
+     the ``variance`` attack, 4 steps each (Zeno with a held batch of 8):
+     ``coord_median`` and ``trimmed_mean`` must launch B3 once per
+     parameter leaf per step and no other run may launch it; every loss
+     must be finite.  On the first step's stacked gradients it holds the
+     B3 aggregates against the plain version and prints which worker Krum
+     and the medoid pick and the set Zeno keeps;
+  7. print one JSON line per kernel table and, last, the device line.
 
 It needs one card and exits non-zero, printing no result, without one or
 outside a checkout of the repository.
@@ -50,6 +65,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 
 M, N_BYZ, STEPS, BATCH, SEQ, LAYERS = 10, 4, 12, 80, 64, 2
+BASELINES = ("coord_median", "trimmed_mean", "geo_median", "weiszfeld",
+             "krum", "zeno", "mean")
+BASELINE_STEPS, HELD_BATCH = 4, 8
+# B3's check of a leaf of more than 2**31 elements: a stacked MLP leaf of
+# TinyLlama at its full 22 layers (m=10, 22 x 2048 x 5632 columns)
+BIG_N = 22 * 2048 * 5632
 BACKENDS = ("kernel", "kernel_fused", "plain")
 BACKEND_KERNEL = {"kernel": "pairwise_sqdist",
                   "kernel_fused": "fused_accumulate_sqdist"}
@@ -224,7 +245,7 @@ def kernel_checks(ops, ref, d_slice: int):
 
 
 def main_path(params, batches, cfg, ops):
-    """Phase 4: the training step, once per safeguard backend."""
+    """Phase 5: the training step, once per safeguard backend."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import attacks as atk_lib
     from repro_torch.core import defenses as dfn_lib
@@ -289,6 +310,273 @@ def main_path(params, batches, cfg, ops):
     return launches
 
 
+def ptxas_summary(log: str) -> str:
+    """One line from ``nvcc -Xptxas -v``: entry functions, the most
+    registers, stack frame and spill bytes of any of them."""
+    regs, stack, spill = [0], [0], [0]
+    for line in log.splitlines():
+        words = line.replace(",", " ").split()
+        for i, w in enumerate(words[1:], 1):
+            if w == "registers" and words[i - 1].isdigit():
+                regs.append(int(words[i - 1]))
+            if w == "stack" and words[i - 2].isdigit():
+                stack.append(int(words[i - 2]))
+            if w == "spill" and words[i - 2].isdigit():
+                spill.append(int(words[i - 2]))
+    return (f"{log.count('Compiling entry function')} entry functions, "
+            f"registers max {max(regs)}, stack frame max {max(stack)} B, "
+            f"spill max {max(spill)} B")
+
+
+def network_size(m: int) -> int:
+    """Compare-exchanges of B3's sorting network for m values (Batcher's
+    odd-even merge sort pruned to m wires, as in robust_agg.cu)."""
+    count, p = 0, 1
+    while p < m:
+        k = p
+        while k >= 1:
+            j = k % p
+            while j + k < m:
+                count += sum(1 for i in range(k) if i + j + k < m
+                             and (i + j) // (2 * p) == (i + j + k) // (2 * p))
+                j += 2 * k
+            k //= 2
+        p *= 2
+    return count
+
+
+def vec_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b| of two float32 vectors: equal values (infinities
+    too) and NaN against NaN count 0, NaN against a number inf."""
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    diff = torch.nan_to_num((a.double() - b.double()).abs(), nan=math.inf)
+    return float(torch.where(same, 0.0, diff).max())
+
+
+def robust_bound(m: int, n: int, itemsize: int):
+    """B3's bound: each input read once and the float32 output written
+    once, or its compare-exchanges (two FMNMX each) plus the final add and
+    multiply at the float32 rate."""
+    return bound(m * n * itemsize + 4 * n, (2 * network_size(m) + 2) * n)
+
+
+def robust_checks(ra_ops, ra_ref, leaf_sizes, d_slice: int):
+    """Phase 4.  Returns the measurements of B3 at the slice's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(m, n, dt):
+        return torch.randn((m, n), generator=gen, device="cuda", dtype=dt)
+
+    def held(name, k_out, p_out):
+        err = vec_err(k_out, p_out)
+        check(err == 0.0, f"{name}: kernel and plain version differ "
+              f"(max_abs_err={err:.3e}, tol=0)")
+        return err
+
+    # every check is exact: the median is a selection plus one float32
+    # midpoint, the trimmed mean adds the kept ranks in rank order and
+    # multiplies by the float32 reciprocal of their count, in both versions
+    worst = 0.0
+    for m in (3, 9, 10, 16, 33, 64):
+        m_worst = 0.0
+        for n in (1000, 100_003):
+            for dt in (torch.float32, torch.bfloat16):
+                g = randn(m, n, dt)
+                m_worst = max(m_worst, held(f"coord_median m={m} n={n} {dt}",
+                                            ra_ops.coord_median(g),
+                                            ra_ref.coord_median(g)))
+                for trim in (1, 2, 4):
+                    if 2 * trim < m:
+                        m_worst = max(m_worst, held(
+                            f"trimmed_mean m={m} n={n} {dt} trim={trim}",
+                            ra_ops.trimmed_mean(g, trim),
+                            ra_ref.trimmed_mean(g, trim)))
+        worst = max(worst, m_worst)
+        print(f"check sorted_reduce m={m} n=1000,100003 f32,bf16 median and "
+              f"trim 1,2,4: max_abs_err={m_worst} tol=0", flush=True)
+    for m in (5, 10, 33):
+        g = randn(m, 8, torch.float32)
+        g[1, 0] = math.nan
+        g[2, 1] = math.inf
+        g[0, 2] = -math.inf
+        g[3, 3], g[4, 3] = math.inf, -math.inf
+        g[0, 4], g[m - 1, 4] = math.nan, math.nan
+        g[:, 5] = math.nan
+        g[2, 6], g[3, 6] = math.nan, math.inf
+        med = ra_ops.coord_median(g)
+        held(f"coord_median non-finite m={m}", med, ra_ref.coord_median(g))
+        check(bool(torch.isnan(med[[0, 4, 5, 6]]).all()),
+              "a column holding a NaN must give a NaN median")
+        for trim in (1, 2):
+            held(f"trimmed_mean non-finite m={m} trim={trim}",
+                 ra_ops.trimmed_mean(g, trim), ra_ref.trimmed_mean(g, trim))
+    print("check sorted_reduce NaN/inf columns m=5,10,33: NaN medians where "
+          "a NaN is, equal to plain: ok", flush=True)
+
+    # every leaf of the slice's model, at m=10 in bfloat16 (its gradients')
+    from repro_torch.core.defenses import derive_trim
+    trim = derive_trim(N_BYZ, M)
+    for n in leaf_sizes:
+        g = randn(M, n, torch.bfloat16)
+        worst = max(worst, held(f"coord_median leaf n={n}",
+                                ra_ops.coord_median(g),
+                                ra_ref.coord_median(g)))
+        worst = max(worst, held(f"trimmed_mean leaf n={n}",
+                                ra_ops.trimmed_mean(g, trim),
+                                ra_ref.trimmed_mean(g, trim)))
+    del g
+    print(f"check sorted_reduce slice leaves m={M} bf16 n={sorted(leaf_sizes)}"
+          f": max_abs_err={worst} tol=0", flush=True)
+
+    # more than 2**31 elements: 64-bit offsets; the plain version is held
+    # column chunk by column chunk (its sort would need 60 GB at once)
+    g = randn(M, BIG_N, torch.bfloat16)
+    check(g.numel() > 2 ** 31, "the big case must exceed 2**31 elements")
+    for name, k_fn, p_fn in (
+            ("coord_median", ra_ops.coord_median, ra_ref.coord_median),
+            ("trimmed_mean", lambda x: ra_ops.trimmed_mean(x, 2),
+             lambda x: ra_ref.trimmed_mean(x, 2))):
+        out = k_fn(g)
+        err = max(vec_err(out[k:k + (1 << 24)], p_fn(g[:, k:k + (1 << 24)]))
+                  for k in range(0, BIG_N, 1 << 24))
+        check(err == 0.0, f"{name} differs beyond 2**31 elements "
+              f"(max_abs_err={err:.3e})")
+        print(f"check {name} m={M} n={BIG_N} bf16 ({g.numel()} elements): "
+              f"max_abs_err={err} tol=0", flush=True)
+        del out
+    del g
+    torch.cuda.empty_cache()
+
+    # times at the slice's whole gradient: (m, d) bfloat16 over all leaves
+    g = randn(M, d_slice, torch.bfloat16)
+    err = held("coord_median slice", ra_ops.coord_median(g),
+               ra_ref.coord_median(g))
+    b_ms, b_by = robust_bound(M, d_slice, 2)
+    result = dict(max_abs_err=max(worst, err),
+                  ms=time_ms(lambda: ra_ops.coord_median(g)),
+                  plain_ms=time_ms(lambda: ra_ref.coord_median(g)),
+                  bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    t_ms = time_ms(lambda: ra_ops.trimmed_mean(g, trim))
+    t_plain = time_ms(lambda: ra_ref.trimmed_mean(g, trim))
+    g9 = g[:9]
+    b9, b9_by = robust_bound(9, d_slice, 2)
+    result["m9"] = dict(ms=time_ms(lambda: ra_ops.coord_median(g9)),
+                        plain_ms=time_ms(lambda: ra_ref.coord_median(g9)),
+                        library_ms=time_ms(lambda: torch.median(g9, dim=0)),
+                        bound_ms=b9, bound_by=b9_by)
+    del g, g9
+    torch.cuda.empty_cache()
+    print(f"time sorted_reduce median m={M} d={d_slice} bf16: kernel "
+          f"{result['ms']:.3f} ms, plain {result['plain_ms']:.3f} ms, bound "
+          f"{b_ms:.3f} ms ({b_by})", flush=True)
+    print(f"time sorted_reduce trimmed_mean m={M} trim={trim} d={d_slice} "
+          f"bf16: kernel {t_ms:.3f} ms, plain {t_plain:.3f} ms", flush=True)
+    r9 = result["m9"]
+    print(f"time sorted_reduce median m=9 d={d_slice} bf16: kernel "
+          f"{r9['ms']:.3f} ms, plain {r9['plain_ms']:.3f} ms, torch.median "
+          f"{r9['library_ms']:.3f} ms, bound {b9:.3f} ms ({b9_by})",
+          flush=True)
+    return result
+
+
+def first_step_checks(params, batch, held_batch, cfg, ra_ref):
+    """Phase 6, on step 1's stacked gradients under ``variance``: the B3
+    aggregates against the plain version, and the baselines' choices."""
+    from repro_torch.core import aggregators as agg_lib
+    from repro_torch.core import attacks as atk_lib
+    from repro_torch.core import tree_utils as tu
+    from repro_torch.core.defenses import derive_trim
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import per_worker_grads, zeno_scores
+
+    def loss(p, b):
+        return T.loss_fn(p, cfg, b)
+
+    byz_mask = torch.arange(M, device="cuda") < N_BYZ
+    _, grads = per_worker_grads(loss, params, batch, M)
+    grads, _ = atk_lib.make_registry()["variance"].act(grads, byz_mask, None,
+                                                       0, None)
+    trim = derive_trim(N_BYZ, M)
+    for name, agg, plain in (
+            ("coord_median", agg_lib.coordinate_median(grads),
+             ra_ref.coord_median),
+            ("trimmed_mean", agg_lib.trimmed_mean(grads, trim),
+             lambda x: ra_ref.trimmed_mean(x, trim))):
+        for path, out, g in zip(tu.tree_paths(grads), tu.tree_leaves(agg),
+                                tu.tree_leaves(grads)):
+            want = plain(g.reshape(M, -1)).reshape(g.shape[1:]).to(g.dtype)
+            check(torch.equal(out, want), f"{name} aggregate of {path} "
+                  "differs from the plain version")
+        print(f"check {name} aggregate of step 1 (variance attack, "
+              f"{len(tu.tree_leaves(grads))} leaves): equal to plain",
+              flush=True)
+    scores = zeno_scores(loss, params, grads, held_batch, eta=0.1, rho=5e-4)
+    keep = agg_lib.zeno_keep(scores, N_BYZ)
+    print(f"picks on step 1 (workers 0-{N_BYZ - 1} Byzantine): krum="
+          f"{int(agg_lib.krum_index(grads, N_BYZ))} medoid="
+          f"{int(agg_lib.medoid_index(grads))} zeno keeps "
+          f"{keep.nonzero().flatten().tolist()} (scores "
+          f"{[round(x, 4) for x in scores.tolist()]})", flush=True)
+
+
+def baselines_path(params, batches, held, cfg, ra_ops, sf_ops):
+    """Phase 6: the seven historyless baselines under ``variance``.
+    Returns B3's launches in the coord_median and trimmed_mean runs."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import attacks as atk_lib
+    from repro_torch.core import defenses as dfn_lib
+    from repro_torch.core import tree_utils as tu
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import Trainer, init_train_state, make_train_step
+
+    byz_mask = torch.arange(M, device="cuda") < N_BYZ
+    attack = atk_lib.make_registry()["variance"]
+    opt = make_optimizer(TrainConfig(lr=0.05))
+    registry = dfn_lib.make_registry(M, N_BYZ)
+    n_leaves = len(tu.tree_leaves(params))
+    b3_launches = 0
+    for name in BASELINES:
+        defense = registry[name]
+        state = init_train_state(params, opt, defense=defense, attack=attack)
+        step = make_train_step(lambda p, b: T.loss_fn(p, cfg, b), opt,
+                               byz_mask=byz_mask, defense=defense,
+                               attack=attack)
+        trainer = Trainer(
+            state, step, iter(batches[:BASELINE_STEPS]),
+            held_iter=iter(held) if defense.needs_held_batch else None,
+            log_every=1, name=f"{cfg.name}/variance/{name}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ra_ops.reset_launch_counts()
+        sf_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.run(1, verbose=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        hist = trainer.run(BASELINE_STEPS - 1, verbose=False)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = dict(ra_ops.LAUNCHES)
+        check(not any(sf_ops.LAUNCHES.values()), f"{name}: B1/B2 launched")
+        want = {k: n_leaves * BASELINE_STEPS if k == name else 0
+                for k in counts}
+        check(counts == want, f"{name}: B3 launches {counts}, expected "
+              f"{want} ({n_leaves} leaves x {BASELINE_STEPS} steps)")
+        b3_launches += sum(counts.values())
+        losses = [r["loss"] for r in hist]
+        check(len(hist) == BASELINE_STEPS and all(map(math.isfinite, losses)),
+              f"{name}: non-finite loss")
+        print(f"run {name} (variance): losses={[round(x, 5) for x in losses]}"
+              f" grad_norm={hist[-1]['grad_norm']:.5g} first_step_s="
+              f"{t1 - t0:.3f} step_s={(t2 - t1) / (BASELINE_STEPS - 1):.3f} "
+              f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.1f} "
+              f"b3_launches={counts}", flush=True)
+        del trainer, state, step
+        torch.cuda.empty_cache()
+    return b3_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -298,7 +586,11 @@ def main() -> int:
     from repro_torch import configs as C
     from repro_torch.core import safeguard as sg
     from repro_torch.data import pipeline as data_lib
+    from repro_torch.core import tree_utils as tu
     from repro_torch.kernels import build
+    from repro_torch.kernels.robust_agg import kernel as ra_kernel
+    from repro_torch.kernels.robust_agg import ops as ra_ops
+    from repro_torch.kernels.robust_agg import ref as ra_ref
     from repro_torch.kernels.safeguard_filter import kernel as sf_kernel
     from repro_torch.kernels.safeguard_filter import ops, ref
     from repro_torch.models import transformer as T
@@ -309,12 +601,13 @@ def main() -> int:
           f"{sys.version.split()[0]}", flush=True)
 
     t0 = time.perf_counter()
-    log = build.finish_builds(build.start_builds([sf_kernel.SOURCE]))
+    procs = build.start_builds([sf_kernel.SOURCE, ra_kernel.SOURCE])
+    logs = [(Path(p.args[-1]).name, build.finish_builds([p])) for p in procs]
     sf_kernel._lib()
+    ra_kernel._lib()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"  ptxas {line.strip()}", flush=True)
+    for name, log in logs:
+        print(f"  ptxas {name}: {ptxas_summary(log)}", flush=True)
 
     cfg = dataclasses.replace(C.get("tinyllama-1.1b"), n_layers=LAYERS)
     params = T.init_params(cfg, seed=0, device="cuda")
@@ -323,11 +616,19 @@ def main() -> int:
           flush=True)
 
     results = kernel_checks(ops, ref, d_slice)
+    leaf_sizes = sorted({leaf.numel() for leaf in tu.tree_leaves(params)})
+    b3 = robust_checks(ra_ops, ra_ref, leaf_sizes, d_slice)
 
     it = data_lib.lm_batches(cfg.vocab_size, BATCH, SEQ, seed=0, m=M,
                              device="cuda")
     batches = [next(it) for _ in range(STEPS)]
     launches = main_path(params, batches, cfg, ops)
+
+    held_it = data_lib.lm_batches(cfg.vocab_size, HELD_BATCH, SEQ, seed=1,
+                                  device="cuda")
+    held = [next(held_it) for _ in range(BASELINE_STEPS)]
+    b3_launches = baselines_path(params, batches, held, cfg, ra_ops, ops)
+    first_step_checks(params, batches[0], held[0], cfg, ra_ref)
 
     source = "src/repro_torch/kernels/safeguard_filter/csrc/safeguard_filter.cu"
     replaces = {"pairwise_sqdist": "src/repro/kernels/safeguard_filter/"
@@ -337,6 +638,11 @@ def main() -> int:
     table = [dict(name=name, route="cuda", source=source,
                   replaces=replaces[name], launches=launches[name], **r)
              for name, r in results.items()]
+    table.append(dict(
+        name="sorted_reduce", route="cuda",
+        source="src/repro_torch/kernels/robust_agg/csrc/robust_agg.cu",
+        replaces="src/repro/kernels/robust_agg/kernel.py:42",
+        launches=b3_launches, **b3))
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -149,3 +149,12 @@ def tree_dissimilarity(tree, mask: torch.Tensor) -> torch.Tensor:
         diff = leaf.to(f32) - center[None].to(f32)
         sq = sq + diff.square().reshape(m, -1).sum(dim=1)
     return (sq * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def tree_select_worker(tree, idx):
+    """Row ``idx`` (an int or a 0-d/1-element tensor, read on the device
+    without a host sync) of every leaf of a stacked tree."""
+    def one(leaf):
+        i = torch.as_tensor(idx, device=leaf.device).reshape(1)
+        return torch.index_select(leaf, 0, i)[0]
+    return tree_map(one, tree)

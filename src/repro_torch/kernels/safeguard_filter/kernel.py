@@ -15,6 +15,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import check_error, stream
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "safeguard_filter.cu"
 
@@ -47,16 +48,6 @@ def n_blocks(d: int, device: torch.device) -> int:
     return max(1, min(sms * _BLOCKS_PER_SM, -(-d // _TILE_D)))
 
 
-def _check(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} "
-                           f"({torch.cuda.get_device_name()})")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def pairwise_sqdist(a: torch.Tensor) -> torch.Tensor:
     """Launch B1 on a checked contiguous (m, d) f32/bf16 CUDA tensor."""
     m, d = a.shape
@@ -65,8 +56,8 @@ def pairwise_sqdist(a: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, m), dtype=torch.float32, device=a.device)
     err = _lib().sf_pairwise_sqdist(
         a.data_ptr(), _DTYPE_CODE[a.dtype], m, d, partial.data_ptr(), nb,
-        out.data_ptr(), _stream(a.device))
-    _check(err, "sf_pairwise_sqdist")
+        out.data_ptr(), stream(a.device))
+    check_error(err, "sf_pairwise_sqdist")
     return out
 
 
@@ -80,6 +71,6 @@ def fused_accumulate_sqdist(acc: torch.Tensor, g: torch.Tensor,
     out = torch.empty((m, m), dtype=torch.float32, device=acc.device)
     err = _lib().sf_fused_accumulate_sqdist(
         acc.data_ptr(), g.data_ptr(), reset.data_ptr(), scale.data_ptr(),
-        m, d, partial.data_ptr(), nb, out.data_ptr(), _stream(acc.device))
-    _check(err, "sf_fused_accumulate_sqdist")
+        m, d, partial.data_ptr(), nb, out.data_ptr(), stream(acc.device))
+    check_error(err, "sf_fused_accumulate_sqdist")
     return out

@@ -18,6 +18,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels.common import check_matrix
 from repro_torch.kernels.safeguard_filter import kernel as _k
 from repro_torch.kernels.safeguard_filter import ref
 
@@ -28,20 +29,6 @@ LAUNCHES: Dict[str, int] = {"pairwise_sqdist": 0,
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def _check_matrix(name: str, x: torch.Tensor, dtypes) -> None:
-    if x.ndim != 2:
-        raise ValueError(f"{name}: expected an (m, d) matrix, got "
-                         f"shape {tuple(x.shape)}")
-    if x.dtype not in dtypes:
-        raise TypeError(f"{name}: dtype {x.dtype} not in {dtypes}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: tensor must be contiguous")
-    m, d = x.shape
-    if not 1 <= m <= _k.MAX_M or d < 1:
-        raise ValueError(f"{name}: need 1 <= m <= {_k.MAX_M} and d >= 1, "
-                         f"got {(m, d)}")
 
 
 def _device_scalar(x, dtype, device) -> torch.Tensor:
@@ -59,7 +46,8 @@ def pairwise_sqdist(a: torch.Tensor) -> torch.Tensor:
         return ref.pairwise_sqdist(a)
     if a.device.type != "cuda":
         raise ValueError(f"pairwise_sqdist: unsupported device {a.device}")
-    _check_matrix("pairwise_sqdist", a, (torch.float32, torch.bfloat16))
+    check_matrix("pairwise_sqdist", a, (torch.float32, torch.bfloat16),
+                 _k.MAX_M)
     out = _k.pairwise_sqdist(a)
     LAUNCHES["pairwise_sqdist"] += 1
     return out
@@ -78,8 +66,10 @@ def fused_accumulate_sqdist(acc: torch.Tensor, g: torch.Tensor, reset,
     if acc.device.type != "cuda":
         raise ValueError(f"fused_accumulate_sqdist: unsupported device "
                          f"{acc.device}")
-    _check_matrix("fused_accumulate_sqdist(acc)", acc, (torch.float32,))
-    _check_matrix("fused_accumulate_sqdist(g)", g, (torch.float32,))
+    check_matrix("fused_accumulate_sqdist(acc)", acc, (torch.float32,),
+                 _k.MAX_M)
+    check_matrix("fused_accumulate_sqdist(g)", g, (torch.float32,),
+                 _k.MAX_M)
     if g.shape != acc.shape or g.device != acc.device:
         raise ValueError(f"fused_accumulate_sqdist: g {tuple(g.shape)} on "
                          f"{g.device} vs acc {tuple(acc.shape)} on "

@@ -4,6 +4,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
         --steps 200 --attack sign_flip --defense safeguard \
         --workers 10 --byz 4
+    PYTHONPATH=src python -m repro_torch.launch.train --defense krum \
+        --attack variance
 
 It runs on the CUDA card unless ``--device cpu`` is given, and refuses to
 start when the card is asked for and missing.
@@ -116,8 +118,13 @@ def main(argv=None):
     it = data_lib.lm_batches(cfg.vocab_size, args.batch, args.seq,
                              seed=args.seed, m=m, flip_mask=flip,
                              device=device)
+    held = None
+    if defense.needs_held_batch:
+        held = data_lib.lm_batches(cfg.vocab_size, 8, args.seq,
+                                   seed=args.seed + 1, device=device)
     name = f"{cfg.name}/{args.attack}/{args.defense}"
-    trainer = Trainer(state, step, it, log_every=args.log_every, name=name)
+    trainer = Trainer(state, step, it, held_iter=held,
+                      log_every=args.log_every, name=name)
     hist = trainer.run(args.steps)
 
     if args.out:

@@ -9,7 +9,8 @@ protocol:
   2. the Byzantine simulation — the attack rewrites the rows marked by
      ``byz_mask``;
   3. aggregation through one ``core.defenses.Defense`` (the safeguard's
-     flat A/B accumulators live in ``TrainState.defense_state``);
+     flat A/B accumulators live in ``TrainState.defense_state``; Zeno
+     gets its scores from a held-out batch, ``zeno_scores``);
   4. the optimizer update.
 
 The step emits the reference's metric keys for the ported defenses and
@@ -27,6 +28,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch.core import aggregators as agg_lib
 from repro_torch.core import attacks as atk_lib
 from repro_torch.core import defenses as dfn_lib
 from repro_torch.core import tree_utils as tu
@@ -83,21 +85,41 @@ def per_worker_grads(loss_fn: Callable, params, batch, m: int):
     return torch.stack(losses), tu.tree_unflatten(params, stacked)
 
 
+def zeno_scores(loss_fn: Callable, params, grads, held_batch, *,
+                eta: float, rho: float) -> torch.Tensor:
+    """Zeno's stochastic descendant score per worker (Definition C.4):
+    Score(g_i) = f_r(x) - f_r(x - eta g_i) - rho ||g_i||^2 evaluated on a
+    held-out minibatch (the master-side oracle).  One forward pass per
+    worker, one stepped copy of the parameters alive at a time."""
+    m = tu.tree_worker_count(grads)
+    with torch.no_grad():
+        loss_before = loss_fn(params, held_batch)
+        loss_after = []
+        for i in range(m):
+            stepped = tu.tree_map(
+                lambda p, g: (p.to(f32) - eta * g[i].to(f32)).to(p.dtype),
+                params, grads)
+            loss_after.append(loss_fn(stepped, held_batch))
+            del stepped
+    return agg_lib.zeno_score(loss_before, torch.stack(loss_after),
+                              tu.tree_row_sq_norms(grads), rho)
+
+
 def make_train_step(loss_fn: Callable, opt: OptimizerBundle, *,
                     byz_mask: torch.Tensor,
                     defense: dfn_lib.Defense,
-                    attack: Optional[atk_lib.Attack] = None):
-    """Build the training step ``step_fn(state, batch) -> (state,
-    metrics)``.  ``loss_fn(params, worker_batch) -> scalar``; ``batch``
-    leaves are ``(m, B/m, ...)``."""
-    if defense.needs_held_batch:
-        raise NotImplementedError(f"{defense.name}: held-batch defenses "
-                                  "are not ported yet")
+                    attack: Optional[atk_lib.Attack] = None,
+                    zeno_eta: float = 0.1, zeno_rho: float = 5e-4):
+    """Build the training step ``step_fn(state, batch, held_batch=None) ->
+    (state, metrics)``.  ``loss_fn(params, worker_batch) -> scalar``;
+    ``batch`` leaves are ``(m, B/m, ...)``; ``held_batch`` (a
+    ``loss_fn`` batch) feeds the score oracle of a defense that
+    ``needs_held_batch``."""
     attack = attack or atk_lib.Attack("none", atk_lib.attack_none)
     m = int(byz_mask.shape[0])
     honest = ~byz_mask
 
-    def step_fn(state: TrainState, batch):
+    def step_fn(state: TrainState, batch, held_batch=None):
         # (1) per-worker gradients
         losses, grads = per_worker_grads(loss_fn, state.params, batch, m)
 
@@ -112,6 +134,12 @@ def make_train_step(loss_fn: Callable, opt: OptimizerBundle, *,
             / torch.clamp(honest.sum(), min=1),
         }
         ctx = {"generator": state.generator}
+        if defense.needs_held_batch:
+            if held_batch is None:
+                raise ValueError(f"{defense.name} needs a held-out batch")
+            ctx["scores"] = zeno_scores(loss_fn, state.params, grads,
+                                        held_batch, eta=zeno_eta,
+                                        rho=zeno_rho)
         agg, defense_state, info = defense.aggregate(state.defense_state,
                                                      grads, ctx)
         metrics["zeta_sq"] = het_lib.zeta_sq(grads, honest)
@@ -144,16 +172,19 @@ def make_train_step(loss_fn: Callable, opt: OptimizerBundle, *,
 
 
 class Trainer:
-    """Python-loop wrapper: data iterator, scalar history, vector traces.
+    """Python-loop wrapper: data iterators, scalar history, vector traces.
 
-    Every ``log_every`` steps (and at the last) the scalar metrics become
-    one history record and, when ``verbose``, one printed log line."""
+    ``held_iter`` yields the held-out batches of a score-oracle defense
+    (Zeno), one per step.  Every ``log_every`` steps (and at the last) the
+    scalar metrics become one history record and, when ``verbose``, one
+    printed log line."""
 
     def __init__(self, state: TrainState, step_fn, data_iter, *,
-                 log_every: int = 50, name: str = "run"):
+                 held_iter=None, log_every: int = 50, name: str = "run"):
         self.state = state
         self.step_fn = step_fn
         self.data_iter = data_iter
+        self.held_iter = held_iter
         self.log_every = log_every
         self.name = name
         self.history: list = []
@@ -164,7 +195,11 @@ class Trainer:
         t0 = time.time()
         for i in range(steps):
             batch = next(self.data_iter)
-            self.state, metrics = self.step_fn(self.state, batch)
+            if self.held_iter is not None:
+                self.state, metrics = self.step_fn(self.state, batch,
+                                                   next(self.held_iter))
+            else:
+                self.state, metrics = self.step_fn(self.state, batch)
             for k, v in metrics.items():
                 if v.ndim != 0:
                     self.traces.setdefault(k, []).append(v)

@@ -1,13 +1,18 @@
-"""The hand-written CUDA kernels of the port against their plain PyTorch
+"""The hand-written CUDA kernels of the port (B1 and B2 of
+``safeguard_filter``, B3 of ``robust_agg``) against their plain PyTorch
 versions, on the card.  Imports no JAX, so it runs on a machine that
 has only PyTorch; without a CUDA device every test skips.
 
     python -m pytest -q tests/test_torch_cuda.py
 """
 
+import math
+
 import pytest
 import torch
 
+from repro_torch.kernels.robust_agg import ops as ra_ops
+from repro_torch.kernels.robust_agg import ref as ra_ref
 from repro_torch.kernels.safeguard_filter import ops, ref
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -69,3 +74,73 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
         ops.fused_accumulate_sqdist(torch.ones((4, 8), device=cuda),
                                     torch.ones((4, 8), device=cuda,
                                                dtype=torch.bfloat16), 0, 1.0)
+
+
+# B3: the coordinate median is a selection plus one float32 midpoint, and
+# the trimmed mean adds the kept ranks in rank order, as the plain
+# version does: both are held to the plain version bit for bit
+
+
+def _robust_input(cuda, m, n, dt, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn((m, n), generator=gen, device=cuda).to(DTYPES[dt])
+
+
+def _assert_same(out, want):
+    torch.testing.assert_close(out, want, atol=0, rtol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 9, 10, 16, 33, 64])
+@pytest.mark.parametrize("n", [1, 1000, 4099])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_coord_median_kernel_matches_plain(cuda, m, n, dt):
+    g = _robust_input(cuda, m, n, dt, m * 1000 + n)
+    before = ra_ops.LAUNCHES["coord_median"]
+    _assert_same(ra_ops.coord_median(g), ra_ref.coord_median(g))
+    assert ra_ops.LAUNCHES["coord_median"] == before + 1
+
+
+@pytest.mark.parametrize("m", [3, 9, 10, 16, 33, 64])
+@pytest.mark.parametrize("trim", [1, 2, 4])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_trimmed_mean_kernel_matches_plain(cuda, m, trim, dt):
+    if 2 * trim >= m:
+        with pytest.raises(ValueError):
+            ra_ops.trimmed_mean(torch.zeros((m, 8), device=cuda), trim)
+        return
+    g = _robust_input(cuda, m, 4099, dt, m * 10 + trim)
+    before = ra_ops.LAUNCHES["trimmed_mean"]
+    _assert_same(ra_ops.trimmed_mean(g, trim), ra_ref.trimmed_mean(g, trim))
+    assert ra_ops.LAUNCHES["trimmed_mean"] == before + 1
+
+
+@pytest.mark.parametrize("m", [5, 10, 33])
+def test_robust_kernel_nonfinite_columns(cuda, m):
+    """NaN and inf column by column: the median of a column holding a NaN
+    is NaN; the trimmed mean is NaN when a NaN reaches the kept ranks."""
+    g = _robust_input(cuda, m, 8, "f32", m)
+    g[1, 0] = math.nan
+    g[2, 1] = math.inf
+    g[0, 2] = -math.inf
+    g[3, 3], g[4, 3] = math.inf, -math.inf
+    g[0, 4], g[m - 1, 4] = math.nan, math.nan
+    g[:, 5] = math.nan
+    g[2, 6], g[3, 6] = math.nan, math.inf
+    med = ra_ops.coord_median(g)
+    _assert_same(med, ra_ref.coord_median(g))
+    assert torch.isnan(med[[0, 4, 5, 6]]).all()
+    for trim in (1, 2):
+        _assert_same(ra_ops.trimmed_mean(g, trim),
+                     ra_ref.trimmed_mean(g, trim))
+
+
+def test_robust_kernel_refuses_what_it_cannot_take(cuda):
+    with pytest.raises(ValueError):
+        ra_ops.coord_median(torch.ones((65, 8), device=cuda))
+    with pytest.raises(TypeError):
+        ra_ops.coord_median(torch.ones((4, 8), device=cuda,
+                                       dtype=torch.float16))
+    with pytest.raises(ValueError):
+        ra_ops.coord_median(torch.ones((8, 4), device=cuda).T)
+    with pytest.raises(ValueError):
+        ra_ops.trimmed_mean(torch.ones((4, 8), device=cuda), 2)
