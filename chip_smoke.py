@@ -37,7 +37,32 @@ own failure):
      must be finite.  On the first step's stacked gradients it holds the
      B3 aggregates against the plain version and prints which worker Krum
      and the medoid pick and the set Zeno keeps;
-  7. print one JSON line per kernel table and, last, the device line.
+  7. hold B4 (``flash_attention``) against its plain version on the card
+     — the sweep of the JAX package's kernel tests (MHA, GQA 8/2, MQA with
+     window 96, ragged L=200, one tile of 128) in float32 and bfloat16, D=64
+     at a ragged L=1984, the first query row against v's row 0, and both
+     serve shapes as the model passes them (transpose views of (B, L, H, D)
+     projections), in bfloat16 and cast to float32 — within 2e-5 (float32)
+     and 2e-2 (bfloat16), bfloat16 elementwise also within 2e-5 plus one
+     bfloat16 step (2**-7 * |ref|) — and time it at both serve shapes
+     beside the plain version, ``scaled_dot_product_attention`` and the
+     bound;
+  8. serve full TinyLlama-1.1B (22 layers, bfloat16, random weights from
+     seed 0): batch 4, a prompt of 1984 tokens, 64 generated (max_seq
+     2048).  Two greedy ``generate`` calls must launch B4 exactly 22 times
+     each (once per layer in the prefill, never in decode) and no other
+     kernel, give ids below the vocabulary and the same tokens, equal to a
+     manual prefill + ``decode_step`` loop, which is timed (prefill s,
+     decode ms per token, tokens/s, peak GB); layer 0's q, k and v,
+     captured in that prefill, must give the same output through B4 and
+     the plain version, in bfloat16 and cast to float32;
+  9. the same for ``tinyllama-1.1b-swa`` (window 4096): batch 2, a prompt of
+     8192 tokens, 32 generated, so the 4096-slot ring has wrapped before
+     decode starts and B4 runs with its window;
+ 10. print one JSON line per kernel table and, last, the device line.
+
+Float32 products run in full IEEE float32: TF32 is off for matmuls and
+cuDNN (set in ``main``), so the plain versions keep float32 precision.
 
 It needs one card and exits non-zero, printing no result, without one or
 outside a checkout of the repository.
@@ -59,10 +84,12 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory
-# bandwidth and the float32 rate of the CUDA cores (no tensor cores: the
-# kernels use IEEE float32 FMAs)
+# bandwidth, the float32 rate of the CUDA cores (B1-B3 do float32 work
+# that has no tensor-core form) and the dense bf16 tensor-core rate (B4's
+# bound: the least time any kernel could take for attention's products)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 M, N_BYZ, STEPS, BATCH, SEQ, LAYERS = 10, 4, 12, 80, 64, 2
 BASELINES = ("coord_median", "trimmed_mean", "geo_median", "weiszfeld",
@@ -78,6 +105,20 @@ BACKEND_KERNEL = {"kernel": "pairwise_sqdist",
 # (float32 multiply then add), so they differ only through the per-worker
 # gradients' own run-to-run rounding; bound relative to the buffer's scale
 AB_RTOL = 1e-3
+# B4 against its plain version: the JAX package's tolerances for its
+# kernel against its reference (the sums run in another order; bfloat16
+# output rounds once)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# ... and, in bfloat16, elementwise within the float32 tolerance plus one
+# bfloat16 unit in the last place of the plain version's value (at most
+# 2**-7 * |ref|): both versions round float32 results that differ by less
+# than FLASH_TOL[float32], so they may land one bfloat16 step apart and
+# no further.  A flat 2e-2 alone is as large as a typical output of a
+# row that sees thousands of keys.
+FLASH_BF16_RTOL = 2.0 ** -7
+# the serve phases: (arch, batch, prompt tokens, generated tokens)
+SERVE_FULL = ("tinyllama-1.1b", 4, 1984, 64)
+SERVE_SWA = ("tinyllama-1.1b-swa", 2, 8192, 32)
 
 
 def fail(msg: str) -> None:
@@ -117,9 +158,10 @@ def time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return total / reps
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float,
+          peak_flops: float = PEAK_F32_FLOP_PER_S):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -128,6 +170,26 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return max(float((x.double() - y.double()).abs().max())
                for x, y in zip(a.reshape(a.shape[0], -1),
                                b.reshape(b.shape[0], -1)))
+
+
+def flash_check(label: str, out: torch.Tensor, want: torch.Tensor) -> float:
+    """Hold B4's ``out`` against its plain version's ``want`` (FLASH_TOL,
+    and the elementwise bfloat16 bound); print and return max |error|."""
+    err = max_err(out, want)
+    ok = err <= FLASH_TOL[out.dtype]
+    line = (f"check flash_attention {label} {out.dtype}: max_abs_err="
+            f"{err:.3e} tol={FLASH_TOL[out.dtype]:.0e}")
+    if out.dtype == torch.bfloat16:
+        excess = max(
+            float(((x.float() - y.float()).abs()
+                   / (FLASH_TOL[torch.float32]
+                      + FLASH_BF16_RTOL * y.float().abs())).max())
+            for x, y in zip(out, want))
+        ok = ok and excess <= 1.0
+        line += f", worst |err| / (2e-5 + 2^-7 |ref|) = {excess:.3f} (<= 1)"
+    print(line, flush=True)
+    check(ok, f"flash_attention disagrees with its plain version ({label})")
+    return err
 
 
 def sqdist_f64(a: torch.Tensor) -> torch.Tensor:
@@ -577,17 +639,216 @@ def baselines_path(params, batches, held, cfg, ra_ops, sf_ops):
     return b3_launches
 
 
+def reachable_pairs(L: int, window: int) -> int:
+    """(query, key) pairs causal attention with ``window`` computes over a
+    sequence of L: each query q attends to min(q + 1, window) keys."""
+    if window <= 0 or window >= L:
+        return L * (L + 1) // 2
+    return window * (window + 1) // 2 + (L - window) * window
+
+
+def flash_bound(B: int, H: int, K: int, L: int, D: int, window: int,
+                itemsize: int):
+    """B4's bound: q, k and v read once and the output written once, or
+    4 * D operations per reachable pair at the bf16 tensor-core peak."""
+    return bound((2 * B * H + 2 * B * K) * L * D * itemsize,
+                 4 * B * H * D * reachable_pairs(L, window),
+                 PEAK_BF16_FLOP_PER_S)
+
+
+def projections(B: int, H: int, K: int, L: int, D: int, dt, gen):
+    """q (B, H, L, D) and k, v (B, K, L, D) as the model passes them:
+    transpose(1, 2) views of (B, L, heads, D) tensors."""
+    return [torch.randn((B, L, n, D), generator=gen, device="cuda",
+                        dtype=dt).transpose(1, 2) for n in (H, K, K)]
+
+
+def flash_checks(fa_ops, fa_ref):
+    """Phase 7.  Returns B4's measurements at the two serve shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = 0.0
+    cases = [(1, 4, 4, 256, 64, 0), (2, 8, 2, 128, 64, 0),
+             (1, 4, 1, 256, 64, 96), (2, 2, 2, 200, 32, 0),
+             (1, 2, 2, 128, 128, 0), (1, 4, 2, 1984, 64, 0)]
+    for B, H, K, L, D, win in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda",
+                                   dtype=dt)
+                       for shape in ((B, H, L, D), (B, K, L, D), (B, K, L, D)))
+            err = flash_check(
+                f"B={B} H={H} K={K} L={L} D={D} window={win}",
+                fa_ops.flash_attention(q, k, v, window=win),
+                fa_ref.attention(q, k, v, window=win))
+            worst = max(worst, err)
+    q, k, v = (torch.randn((1, 2, 128, 32), generator=gen, device="cuda")
+               for _ in range(3))
+    err = max_err(fa_ops.flash_attention(q, k, v)[:, :, 0], v[:, :, 0])
+    print(f"check flash_attention first row = v[0]: max_abs_err={err:.3e}",
+          flush=True)
+    check(err <= 1e-6, "the first query row must attend to key 0 only")
+
+    from repro_torch import configs as C
+    results = {}
+    for label, (arch, batch, prompt, _) in (("full", SERVE_FULL),
+                                            ("swa", SERVE_SWA)):
+        cfg = C.get(arch)
+        H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        win = cfg.window if cfg.attn == "sliding" else 0
+        q, k, v = projections(batch, H, K, prompt, D, torch.bfloat16, gen)
+        out = fa_ops.flash_attention(q, k, v, window=win)
+        check(out.transpose(1, 2).is_contiguous(),
+              "B4's output must keep the projections' layout")
+        shape = f"serve-{label} B={batch} H={H} K={K} L={prompt} D={D} " \
+            f"window={win}"
+        worst = max(worst, flash_check(
+            shape, out, fa_ref.attention(q, k, v, window=win)))
+        # the same projections in float32, held to the float32 tolerance:
+        # every late row and every tile of the window counts at this scale
+        qf, kf, vf = (x.float() for x in (q, k, v))
+        worst = max(worst, flash_check(
+            shape, fa_ops.flash_attention(qf, kf, vf, window=win),
+            fa_ref.attention(qf, kf, vf, window=win)))
+        del qf, kf, vf
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if win:
+            # a window needs a mask, and the backends that take one take
+            # no GQA map: K/V go in repeated to H heads, outside the timing
+            pos = torch.arange(prompt, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - win)
+            kx, vx = (x.repeat_interleave(H // K, dim=1) for x in (k, v))
+            library = lambda: sdpa(q, kx, vx, attn_mask=mask)
+        else:
+            library = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        b_ms, b_by = flash_bound(batch, H, K, prompt, D, win, 2)
+        r = dict(ms=time_ms(lambda: fa_ops.flash_attention(q, k, v,
+                                                           window=win)),
+                 plain_ms=time_ms(lambda: fa_ref.attention(q, k, v,
+                                                           window=win)),
+                 library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+        print(f"time flash_attention serve-{label} B={batch} L={prompt} "
+              f"window={win} bf16: kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, sdpa {r['library_ms']:.3f} ms, "
+              f"bound {b_ms:.3f} ms ({b_by})", flush=True)
+        results[label] = r
+        del q, k, v, out, library
+        torch.cuda.empty_cache()
+    results["full"]["max_abs_err"] = worst
+    return results
+
+
+def serve_phase(label: str, arch: str, batch: int, prompt_len: int,
+                gen_len: int, fa_ops, fa_ref, other_ops):
+    """Phases 8 and 9: greedy serving of ``arch`` at full width and depth.
+    Returns B4's launches in the first ``generate`` call (the main path's
+    run, counted from 0)."""
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    from repro_torch.train import serve
+
+    cfg = C.get(arch)
+    params = T.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen, device="cuda")
+    max_seq = prompt_len + gen_len
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    runs = []
+    for _ in range(2):
+        for ops in (fa_ops, *other_ops):
+            ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks = serve.generate(params, cfg, prompt, n_tokens=gen_len,
+                              max_seq=max_seq)
+        torch.cuda.synchronize()
+        counts = {name: n for ops in (fa_ops, *other_ops)
+                  for name, n in ops.LAUNCHES.items()}
+        want = {name: cfg.n_layers if name == "flash_attention" else 0
+                for name in counts}
+        check(counts == want, f"serve-{label}: launches {counts}, expected "
+              f"{want} (one B4 launch per layer in the prefill)")
+        check(tuple(toks.shape) == (batch, gen_len), "token shape")
+        check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+              "token ids out of the vocabulary")
+        runs.append((toks, time.perf_counter() - t0,
+                     counts["flash_attention"]))
+    check(torch.equal(runs[0][0], runs[1][0]),
+          f"serve-{label}: two greedy generate calls differ")
+
+    # the manual loop, timed by phase; layer 0's q, k, v captured from B4
+    captured = []
+    real = fa_ops.flash_attention
+
+    def record(q, k, v, *, window=0):
+        out = real(q, k, v, window=window)
+        if not captured:
+            captured.append((q, k, v, window, out))
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fa_ops.flash_attention = record
+    try:
+        logits, cache = T.prefill(params, cfg, prompt, max_seq=max_seq)
+    finally:
+        fa_ops.flash_attention = real
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    cur = logits.argmax(-1)
+    manual = [cur]
+    for _ in range(gen_len - 1):
+        logits, cache = T.decode_step(params, cfg, cur[:, None], cache)
+        cur = logits.argmax(-1)
+        manual.append(cur)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(cache["pos"] == max_seq - 1, "cache position after the loop")
+    check(torch.equal(torch.stack(manual, 1), runs[0][0]),
+          f"serve-{label}: generate differs from prefill + decode_step")
+
+    q, k, v, win, out = captured[0]
+    flash_check(f"serve-{label} layer 0", out,
+                fa_ref.attention(q, k, v, window=win))
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    flash_check(f"serve-{label} layer 0", fa_ops.flash_attention(
+        qf, kf, vf, window=win), fa_ref.attention(qf, kf, vf, window=win))
+    del qf, kf, vf
+    steps = gen_len - 1
+    print(f"run serve-{label} {cfg.name} x{cfg.n_layers} layers batch={batch}"
+          f" prompt={prompt_len} gen={gen_len} ring={cache['blocks']['k'].shape[2]}"
+          f": prefill_s={t1 - t0:.3f} decode_ms_per_token="
+          f"{(t2 - t1) / steps * 1e3:.3f} tokens_per_s="
+          f"{batch * steps / (t2 - t1):.1f} generate_s={runs[0][1]:.3f},"
+          f"{runs[1][1]:.3f} peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} b4_launches="
+          f"{runs[0][2]},{runs[1][2]}; tokens[0][:8]="
+          f"{runs[0][0][0, :8].tolist()}", flush=True)
+    del params, cache, captured, q, k, v, out
+    torch.cuda.empty_cache()
+    return runs[0][2]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     if not (SRC / "repro_torch" / "kernels").is_dir():
         fail(f"no checkout of the repository around {ROOT}")
     sys.path.insert(0, str(SRC))
+    # every float32 product in full IEEE float32 (the plain versions are
+    # the kernels' yardsticks): no TF32 in matmuls or cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch import configs as C
     from repro_torch.core import safeguard as sg
     from repro_torch.data import pipeline as data_lib
     from repro_torch.core import tree_utils as tu
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.robust_agg import kernel as ra_kernel
     from repro_torch.kernels.robust_agg import ops as ra_ops
     from repro_torch.kernels.robust_agg import ref as ra_ref
@@ -601,10 +862,12 @@ def main() -> int:
           f"{sys.version.split()[0]}", flush=True)
 
     t0 = time.perf_counter()
-    procs = build.start_builds([sf_kernel.SOURCE, ra_kernel.SOURCE])
+    procs = build.start_builds([sf_kernel.SOURCE, ra_kernel.SOURCE,
+                                fa_kernel.SOURCE])
     logs = [(Path(p.args[-1]).name, build.finish_builds([p])) for p in procs]
     sf_kernel._lib()
     ra_kernel._lib()
+    fa_kernel._lib()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs:
         print(f"  ptxas {name}: {ptxas_summary(log)}", flush=True)
@@ -629,6 +892,14 @@ def main() -> int:
     held = [next(held_it) for _ in range(BASELINE_STEPS)]
     b3_launches = baselines_path(params, batches, held, cfg, ra_ops, ops)
     first_step_checks(params, batches[0], held[0], cfg, ra_ref)
+    del params, batches, held
+    torch.cuda.empty_cache()
+
+    b4 = flash_checks(fa_ops, fa_ref)
+    b4["full"]["launches"] = serve_phase("full", *SERVE_FULL, fa_ops, fa_ref,
+                                         (ops, ra_ops))
+    b4["swa"]["launches"] = serve_phase("swa", *SERVE_SWA, fa_ops, fa_ref,
+                                        (ops, ra_ops))
 
     source = "src/repro_torch/kernels/safeguard_filter/csrc/safeguard_filter.cu"
     replaces = {"pairwise_sqdist": "src/repro/kernels/safeguard_filter/"
@@ -643,6 +914,12 @@ def main() -> int:
         source="src/repro_torch/kernels/robust_agg/csrc/robust_agg.cu",
         replaces="src/repro/kernels/robust_agg/kernel.py:42",
         launches=b3_launches, **b3))
+    table.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:82",
+        **b4["full"], swa=b4["swa"]))
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Architecture registry of the port: ``get(name)`` -> full ModelConfig,
-``get_smoke(name)`` -> reduced variant.  Only tinyllama-1.1b is ported;
-every other arch of ``repro.configs`` raises."""
+``get_smoke(name)`` -> reduced variant.  Only tinyllama-1.1b and its
+sliding-window variant are ported; every other arch of ``repro.configs``
+raises."""
 
 from __future__ import annotations
 
@@ -8,14 +9,14 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig, TrainConfig  # noqa: F401
 
-_MODULES = {"tinyllama-1.1b": "tinyllama_1_1b"}
+_MODULES = {"tinyllama-1.1b": "tinyllama_1_1b",
+            "tinyllama-1.1b-swa": "tinyllama_1_1b_swa"}
 
 # the other archs of the reference registry, still to be ported
 _NOT_PORTED = (
     "musicgen-medium", "granite-34b", "deepseek-v2-236b",
     "granite-moe-3b-a800m", "qwen2-vl-7b", "deepseek-coder-33b",
     "recurrentgemma-2b", "stablelm-1.6b", "mamba2-130m",
-    "tinyllama-1.1b-swa",
 )
 
 

@@ -5,7 +5,10 @@
     accumulate-and-reset (CUDA C++, ``csrc/safeguard_filter.cu``);
   * ``robust_agg`` — the coordinate-wise median and trimmed mean over the
     worker axis of one stacked gradient leaf (CUDA C++,
-    ``csrc/robust_agg.cu``).
+    ``csrc/robust_agg.cu``);
+  * ``flash_attention`` — causal attention with GQA and a sliding window,
+    on the prefill path from ``FLASH_THRESHOLD`` on (CUDA C++,
+    ``csrc/flash_attention.cu``).
 
 Each package ships ``csrc/`` (the CUDA source), ``kernel.py`` (build and
 ctypes binding), ``ops.py`` (checked wrappers, device dispatch, launch

@@ -7,14 +7,19 @@ from __future__ import annotations
 import torch
 
 
+def check_dtype(name: str, x: torch.Tensor, dtypes) -> None:
+    """Raise unless ``x`` is of one of ``dtypes``."""
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {x.dtype} not in {dtypes}")
+
+
 def check_matrix(name: str, x: torch.Tensor, dtypes, max_m: int) -> None:
     """Raise unless ``x`` is a contiguous ``(m, d)`` matrix of one of
     ``dtypes`` with ``1 <= m <= max_m`` and ``d >= 1``."""
     if x.ndim != 2:
         raise ValueError(f"{name}: expected an (m, d) matrix, got "
                          f"shape {tuple(x.shape)}")
-    if x.dtype not in dtypes:
-        raise TypeError(f"{name}: dtype {x.dtype} not in {dtypes}")
+    check_dtype(name, x, dtypes)
     if not x.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
     m, d = x.shape

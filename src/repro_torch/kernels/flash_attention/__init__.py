@@ -1,0 +1,3 @@
+from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
+    LAUNCHES, flash_attention, reset_launch_counts)
+from repro_torch.kernels.flash_attention import ref                   # noqa: F401

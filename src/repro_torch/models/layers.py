@@ -1,12 +1,15 @@
 """Layers of the dense attention path (port of ``repro.models.layers``):
-RMSNorm, RoPE, GQA attention and the SwiGLU MLP, as plain functions over
-dicts of tensors.
+RMSNorm, RoPE, GQA attention with its decode cache, and the SwiGLU MLP,
+as plain functions over dicts of tensors.
 
 Numerics follow the reference: matmuls accumulate in float32 and cast
 back to the first operand's dtype; softmax and norms run in float32.
-Attention is the dense masked form that the reference runs below
-``FLASH_THRESHOLD``; the blocked flash path (and the Pallas
-``flash_attention`` kernel it mirrors) is a later port.
+Below ``FLASH_THRESHOLD`` attention is the dense masked form; from it on,
+train-mode and prefill attention go through kernel B4
+(``kernels.flash_attention``), the port's counterpart of the reference's
+blocked ``flash_attention_jnp``.  B4 has no backward pass yet, so a
+forward that needs gradients there raises.  Decode attends over the
+ring-buffer cache with the dense form, as the reference does.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import math
 from typing import Dict, Optional
 
 import torch
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
 
 f32 = torch.float32
 
@@ -91,14 +96,72 @@ def causal_mask(Lq: int, Lk: int, *, q_offset: int = 0, window: int = 0,
     return m
 
 
-def attn_block_apply(params: Dict, cfg, x, *, positions):
-    """One attention layer on the train path (no cache): projections,
-    rope, dense causal attention, output projection."""
-    B, L, _ = x.shape
-    if L >= FLASH_THRESHOLD:
+def ring_from_full(full, S: int):
+    """Pack the last ``min(L, S)`` timesteps of a full-sequence tensor
+    (B, L, ...) into a ring buffer of size S: absolute position p lives
+    at slot ``p % S``."""
+    B, Lf = full.shape[0], full.shape[1]
+    keep = min(Lf, S)
+    p0 = Lf - keep
+    ring = torch.zeros((B, S) + tuple(full.shape[2:]), dtype=full.dtype,
+                       device=full.device)
+    slots = (p0 + torch.arange(keep, device=full.device)) % S
+    ring[:, slots] = full[:, p0:]
+    return ring
+
+
+def attn_cache_init(cfg, batch: int, max_seq: int, dtype, device,
+                    lead=()):
+    """Zeroed K/V ring buffers (B, S, K, Dh): S is ``max_seq``, or at most
+    the window for sliding layers.  ``lead`` prepends stacking axes."""
+    S = max_seq if cfg.attn != "sliding" else min(max_seq, cfg.window)
+    shape = tuple(lead) + (batch, S, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _flash(q, k, v, window: int):
+    """Causal attention through kernel B4 on (B, L, H, D) projections,
+    passed as (B, H, L, D) transpose views.  Returns (B, L, H * D)."""
+    if q.requires_grad or k.requires_grad or v.requires_grad:
         raise NotImplementedError(
-            f"sequence length {L} >= {FLASH_THRESHOLD} takes the blocked "
-            "flash-attention path, which is not ported yet")
+            f"sequence length {q.shape[1]} >= {FLASH_THRESHOLD} takes flash "
+            "attention (kernel B4), whose backward pass is not ported yet")
+    B, L, H, D = q.shape
+    out = fa_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), window=window)
+    return out.transpose(1, 2).reshape(B, L, H * D)
+
+
+def ring_valid(cache_pos: int, S: int, window: int, device):
+    """Which of a ring of S slots a decode token at absolute position
+    ``cache_pos`` attends to, after its own K/V went into slot
+    ``cache_pos % S``.  Slot j holds position
+    ``abs_j = pos - ((pos - j) mod S)``, in ``(pos - S, pos]``."""
+    j = torch.arange(S, device=device)
+    abs_j = cache_pos - torch.remainder(cache_pos - j, S)
+    valid = abs_j >= 0
+    if window > 0:
+        valid &= abs_j > cache_pos - window
+    return valid
+
+
+def attn_block_apply(params: Dict, cfg, x, *, positions, cache=None,
+                     cache_pos: int = 0, cache_valid=None, max_seq: int = 0):
+    """One attention layer: projections, rope, attention, output
+    projection.  Returns ``(out, new_cache)``.
+
+    Train/prefill (``cache is None``): causal (+window) attention over x
+    (B, L, d); with ``max_seq > 0`` (prefill) ``new_cache`` holds ring
+    buffers of that size (of the window, for sliding layers), else it is
+    None.  Decode: ``cache`` = {"k", "v"} ring buffers, ``cache_pos`` the
+    absolute position (a Python int) of the one incoming token, and
+    ``cache_valid`` the ring's mask from ``ring_valid`` (made here when
+    None; the model makes it once per step for all layers).  The token's
+    K/V are written into the buffers IN PLACE, and ``new_cache`` is
+    ``cache`` itself.
+    """
+    B, L, _ = x.shape
     H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _einsum("bld,dhq->blhq", x, params["wq"].reshape(cfg.d_model, H, Dh))
     k = _einsum("bld,dkq->blkq", x, params["wk"].reshape(cfg.d_model, K, Dh))
@@ -111,10 +174,32 @@ def attn_block_apply(params: Dict, cfg, x, *, positions):
         k = apply_rope(k, cos, sin, cfg.rope_fraction)
     elif cfg.pos != "none":
         raise NotImplementedError(f"positions {cfg.pos!r} not ported yet")
+    scale = 1.0 / math.sqrt(Dh)
     window = cfg.window if cfg.attn == "sliding" else 0
-    mask = causal_mask(L, L, window=window, device=x.device)[None, None, None]
-    out = attention(q, k, v, scale=1.0 / math.sqrt(Dh), mask=mask)
-    return _einsum("blf,fd->bld", out, params["wo"])
+
+    if cache is None:
+        if L >= FLASH_THRESHOLD:
+            out = _flash(q, k, v, window)
+        else:
+            mask = causal_mask(L, L, window=window, device=x.device)
+            out = attention(q, k, v, scale=scale, mask=mask[None, None, None])
+        new_cache = None
+        if max_seq > 0:
+            S = min(max_seq, window) if window > 0 else max_seq
+            new_cache = {"k": ring_from_full(k, S), "v": ring_from_full(v, S)}
+    else:
+        if L != 1:
+            raise ValueError(f"decode takes one token at a time, got {L}")
+        S = cache["k"].shape[1]             # ring size (or max seq)
+        slot = cache_pos % S
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        if cache_valid is None:
+            cache_valid = ring_valid(cache_pos, S, window, x.device)
+        out = attention(q, cache["k"], cache["v"], scale=scale,
+                        mask=cache_valid[None, None, None, None, :])
+        new_cache = cache
+    return _einsum("blf,fd->bld", out, params["wo"]), new_cache
 
 
 def _normal(gen: torch.Generator, shape, dtype, device, init_scale: float):

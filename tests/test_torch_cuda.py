@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels of the port (B1 and B2 of
-``safeguard_filter``, B3 of ``robust_agg``) against their plain PyTorch
-versions, on the card.  Imports no JAX, so it runs on a machine that
+``safeguard_filter``, B3 of ``robust_agg``, B4 of ``flash_attention``)
+against their plain PyTorch versions, on the card.  Imports no JAX, so it runs on a machine that
 has only PyTorch; without a CUDA device every test skips.
 
     python -m pytest -q tests/test_torch_cuda.py
@@ -11,6 +11,8 @@ import math
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.robust_agg import ops as ra_ops
 from repro_torch.kernels.robust_agg import ref as ra_ref
 from repro_torch.kernels.safeguard_filter import ops, ref
@@ -144,3 +146,79 @@ def test_robust_kernel_refuses_what_it_cannot_take(cuda):
         ra_ops.coord_median(torch.ones((8, 4), device=cuda).T)
     with pytest.raises(ValueError):
         ra_ops.trimmed_mean(torch.ones((4, 8), device=cuda), 2)
+
+
+# B4: flash attention against its plain version.  Tolerances are the JAX
+# package's for its kernel against its reference: the sums run in another
+# order (2e-5 in float32), and the bfloat16 output rounds once (2e-2).
+# In bfloat16 each element is also held within 2e-5 plus one bfloat16 step
+# of the plain version's value (2**-7 * |ref|): both round float32 results
+# that differ by less than 2e-5, so they land at most one step apart.
+
+FLASH_TOL = {"f32": 2e-5, "bf16": 2e-2}
+FLASH_BF16_RTOL = 2.0 ** -7
+
+
+def _qkv(cuda, B, H, K, L, D, dt, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=cuda).to(DTYPES[dt])
+            for shape in ((B, H, L, D), (B, K, L, D), (B, K, L, D))]
+
+
+@pytest.mark.parametrize("B,H,K,L,D,win", [
+    (1, 4, 4, 256, 64, 0),      # MHA
+    (2, 8, 2, 128, 64, 0),      # GQA
+    (1, 4, 1, 256, 64, 96),     # MQA + sliding window
+    (2, 2, 2, 200, 32, 0),      # ragged L
+    (1, 2, 2, 128, 128, 0),     # one tile of 128
+    (1, 8, 2, 1040, 16, 0),     # the smoke model's head dim, ragged L
+    (1, 4, 2, 1984, 64, 0),     # the serve prompt, ragged L
+    (1, 4, 1, 700, 64, 33),     # a window that is not a tile multiple
+])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_attention_kernel_matches_plain(cuda, B, H, K, L, D, win, dt):
+    q, k, v = _qkv(cuda, B, H, K, L, D, dt, B * H + L + D + win)
+    before = fa_ops.LAUNCHES["flash_attention"]
+    out = fa_ops.flash_attention(q, k, v, window=win)
+    assert fa_ops.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    want = fa_ref.attention(q, k, v, window=win).float()
+    torch.testing.assert_close(out.float(), want, atol=FLASH_TOL[dt], rtol=0)
+    if dt == "bf16":
+        torch.testing.assert_close(out.float(), want,
+                                   atol=FLASH_TOL["f32"],
+                                   rtol=FLASH_BF16_RTOL)
+
+
+def test_flash_attention_kernel_takes_transposed_views(cuda):
+    """(B, L, H, D) projections passed as transpose(1, 2) views: the same
+    result as contiguous inputs, and an output in the same layout."""
+    q, k, v = _qkv(cuda, 2, 8, 2, 300, 64, "bf16", 7)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                  for x in (q, k, v))
+    out = fa_ops.flash_attention(qt, kt, vt, window=50)
+    assert out.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(out, fa_ops.flash_attention(q, k, v,
+                                                           window=50),
+                               atol=0, rtol=0)
+
+
+def test_flash_attention_kernel_first_row_is_v0(cuda):
+    q, k, v = _qkv(cuda, 1, 2, 1, 128, 32, "f32", 3)
+    out = fa_ops.flash_attention(q, k, v)
+    torch.testing.assert_close(out[0, :, 0], v[0, [0, 0], 0], atol=0,
+                               rtol=1e-5)
+
+
+def test_flash_attention_kernel_refuses_what_it_cannot_take(cuda):
+    q, k, v = _qkv(cuda, 1, 4, 2, 64, 64, "f32", 0)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q[:, :3], k, v)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, k.cpu(), v)
