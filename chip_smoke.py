@@ -7,7 +7,8 @@ own failure):
 
   1. print the card's name and power limit (``nvidia-smi``);
   2. build the CUDA kernels from the sources in this checkout (one
-     ``nvcc`` per source, all started together);
+     ``nvcc`` per source, all started together) and print each source's
+     registers and spills from ``ptxas``;
   3. hold B1 and B2 (``safeguard_filter``) against their plain PyTorch
      versions on the card — m in {4, 10, 33}, float32 and bfloat16, a
      ragged d, the fused update with reset 0 and 1 and a NaN/inf
@@ -37,25 +38,26 @@ own failure):
      must be finite.  On the first step's stacked gradients it holds the
      B3 aggregates against the plain version and prints which worker Krum
      and the medoid pick and the set Zeno keeps;
-  7. hold B4 (``flash_attention``) against its plain version on the card
+  7. hold B4 (``flash_attention``: bfloat16 on the tensor-core kernel,
+     float32 on the CUDA-core kernel) against its plain version on the card
      — the sweep of the JAX package's kernel tests (MHA, GQA 8/2, MQA with
      window 96, ragged L=200, one tile of 128) in float32 and bfloat16, D=64
      at a ragged L=1984, the first query row against v's row 0, and both
      serve shapes as the model passes them (transpose views of (B, L, H, D)
      projections), in bfloat16 and cast to float32 — within 2e-5 (float32)
      and 2e-2 (bfloat16), bfloat16 elementwise also within 2e-5 plus one
-     bfloat16 step (2**-7 * |ref|) — and time it at both serve shapes
-     beside the plain version, ``scaled_dot_product_attention`` and the
-     bound;
+     bfloat16 step (2**-7 * |ref|) — and time both kernels at both serve
+     shapes beside the plain version, ``scaled_dot_product_attention``
+     (causal, and with a boolean window mask) and the bound;
   8. serve full TinyLlama-1.1B (22 layers, bfloat16, random weights from
      seed 0): batch 4, a prompt of 1984 tokens, 64 generated (max_seq
-     2048).  Two greedy ``generate`` calls must launch B4 exactly 22 times
-     each (once per layer in the prefill, never in decode) and no other
-     kernel, give ids below the vocabulary and the same tokens, equal to a
-     manual prefill + ``decode_step`` loop, which is timed (prefill s,
-     decode ms per token, tokens/s, peak GB); layer 0's q, k and v,
-     captured in that prefill, must give the same output through B4 and
-     the plain version, in bfloat16 and cast to float32;
+     2048).  Two greedy ``generate`` calls must launch B4's tensor-core
+     kernel exactly 22 times each (once per layer in the prefill, never in
+     decode) and no other kernel, give ids below the vocabulary and the
+     same tokens, equal to a manual prefill + ``decode_step`` loop, which
+     is timed (prefill s, decode ms per token, tokens/s, peak GB); layer
+     0's q, k and v, captured in that prefill, must give the same output
+     through B4 and the plain version, in bfloat16 and cast to float32;
   9. the same for ``tinyllama-1.1b-swa`` (window 4096): batch 2, a prompt of
      8192 tokens, 32 generated, so the 4096-slot ring has wrapped before
      decode starts and B4 runs with its window;
@@ -648,12 +650,11 @@ def reachable_pairs(L: int, window: int) -> int:
 
 
 def flash_bound(B: int, H: int, K: int, L: int, D: int, window: int,
-                itemsize: int):
+                itemsize: int, peak_flops: float):
     """B4's bound: q, k and v read once and the output written once, or
-    4 * D operations per reachable pair at the bf16 tensor-core peak."""
+    4 * D operations per reachable pair at ``peak_flops``."""
     return bound((2 * B * H + 2 * B * K) * L * D * itemsize,
-                 4 * B * H * D * reachable_pairs(L, window),
-                 PEAK_BF16_FLOP_PER_S)
+                 4 * B * H * D * reachable_pairs(L, window), peak_flops)
 
 
 def projections(B: int, H: int, K: int, L: int, D: int, dt, gen):
@@ -663,10 +664,48 @@ def projections(B: int, H: int, K: int, L: int, D: int, dt, gen):
                         dtype=dt).transpose(1, 2) for n in (H, K, K)]
 
 
+def flash_times(fa_ops, fa_ref, label: str, q, k, v, win: int):
+    """Phase 7's times of B4 at one serve shape, in q's dtype (bfloat16:
+    the tensor-core kernel; float32: the CUDA-core kernel): the kernel, the
+    plain version, SDPA on the same function (causal with the GQA map;
+    with a window, a boolean mask on K/V repeated to H heads outside the
+    timing, as the backends that take a mask take no GQA map), SDPA with
+    the boolean mask also where causality is the whole mask, and the
+    bound.  float32 is bound at the CUDA cores' float32 rate: the tensor
+    cores take float32 only as TF32."""
+    B, H, L, D = q.shape
+    K = k.shape[1]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pos = torch.arange(L, device="cuda")
+    mask = pos[None, :] <= pos[:, None]
+    if win:
+        mask &= pos[None, :] > pos[:, None] - win
+    kx, vx = (x.repeat_interleave(H // K, dim=1) for x in (k, v))
+    masked = lambda: sdpa(q, kx, vx, attn_mask=mask)
+    causal = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    bf16 = q.dtype == torch.bfloat16
+    b_ms, b_by = flash_bound(B, H, K, L, D, win, q.element_size(),
+                             PEAK_BF16_FLOP_PER_S if bf16 else
+                             PEAK_F32_FLOP_PER_S)
+    r = dict(ms=time_ms(lambda: fa_ops.flash_attention(q, k, v, window=win)),
+             plain_ms=time_ms(lambda: fa_ref.attention(q, k, v, window=win)),
+             masked_sdpa_ms=time_ms(masked), bound_ms=b_ms, bound_by=b_by)
+    r["library_ms"] = r["masked_sdpa_ms"] if win else time_ms(causal)
+    r["bound_share"] = b_ms / r["ms"]
+    print(f"time flash_attention_{'tc' if bf16 else 'f32'} serve-{label} "
+          f"B={B} L={L} window={win} {q.dtype}: kernel {r['ms']:.3f} ms "
+          f"({100 * r['bound_share']:.1f} % of the bound), plain "
+          f"{r['plain_ms']:.3f} ms, sdpa {r['library_ms']:.3f} ms, sdpa with "
+          f"a boolean mask {r['masked_sdpa_ms']:.3f} ms, bound {b_ms:.3f} ms "
+          f"({b_by})", flush=True)
+    return r
+
+
 def flash_checks(fa_ops, fa_ref):
-    """Phase 7.  Returns B4's measurements at the two serve shapes."""
+    """Phase 7.  Returns B4's measurements at the two serve shapes, by
+    serve shape and then dtype, and the largest error of each dtype."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    worst = 0.0
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     cases = [(1, 4, 4, 256, 64, 0), (2, 8, 2, 128, 64, 0),
              (1, 4, 1, 256, 64, 96), (2, 2, 2, 200, 32, 0),
              (1, 2, 2, 128, 128, 0), (1, 4, 2, 1984, 64, 0)]
@@ -679,7 +718,7 @@ def flash_checks(fa_ops, fa_ref):
                 f"B={B} H={H} K={K} L={L} D={D} window={win}",
                 fa_ops.flash_attention(q, k, v, window=win),
                 fa_ref.attention(q, k, v, window=win))
-            worst = max(worst, err)
+            worst[dt] = max(worst[dt], err)
     q, k, v = (torch.randn((1, 2, 128, 32), generator=gen, device="cuda")
                for _ in range(3))
     err = max_err(fa_ops.flash_attention(q, k, v)[:, :, 0], v[:, :, 0])
@@ -700,48 +739,27 @@ def flash_checks(fa_ops, fa_ref):
               "B4's output must keep the projections' layout")
         shape = f"serve-{label} B={batch} H={H} K={K} L={prompt} D={D} " \
             f"window={win}"
-        worst = max(worst, flash_check(
+        worst[q.dtype] = max(worst[q.dtype], flash_check(
             shape, out, fa_ref.attention(q, k, v, window=win)))
         # the same projections in float32, held to the float32 tolerance:
         # every late row and every tile of the window counts at this scale
         qf, kf, vf = (x.float() for x in (q, k, v))
-        worst = max(worst, flash_check(
+        worst[qf.dtype] = max(worst[qf.dtype], flash_check(
             shape, fa_ops.flash_attention(qf, kf, vf, window=win),
             fa_ref.attention(qf, kf, vf, window=win)))
-        del qf, kf, vf
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        if win:
-            # a window needs a mask, and the backends that take one take
-            # no GQA map: K/V go in repeated to H heads, outside the timing
-            pos = torch.arange(prompt, device="cuda")
-            mask = (pos[None, :] <= pos[:, None]) & \
-                (pos[None, :] > pos[:, None] - win)
-            kx, vx = (x.repeat_interleave(H // K, dim=1) for x in (k, v))
-            library = lambda: sdpa(q, kx, vx, attn_mask=mask)
-        else:
-            library = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
-        b_ms, b_by = flash_bound(batch, H, K, prompt, D, win, 2)
-        r = dict(ms=time_ms(lambda: fa_ops.flash_attention(q, k, v,
-                                                           window=win)),
-                 plain_ms=time_ms(lambda: fa_ref.attention(q, k, v,
-                                                           window=win)),
-                 library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
-        print(f"time flash_attention serve-{label} B={batch} L={prompt} "
-              f"window={win} bf16: kernel {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.3f} ms, sdpa {r['library_ms']:.3f} ms, "
-              f"bound {b_ms:.3f} ms ({b_by})", flush=True)
-        results[label] = r
-        del q, k, v, out, library
+        results[label] = {
+            dt: flash_times(fa_ops, fa_ref, label, x, y, z, win)
+            for dt, (x, y, z) in (("bf16", (q, k, v)), ("f32", (qf, kf, vf)))}
+        del q, k, v, out, qf, kf, vf
         torch.cuda.empty_cache()
-    results["full"]["max_abs_err"] = worst
-    return results
+    return results, worst
 
 
 def serve_phase(label: str, arch: str, batch: int, prompt_len: int,
                 gen_len: int, fa_ops, fa_ref, other_ops):
     """Phases 8 and 9: greedy serving of ``arch`` at full width and depth.
-    Returns B4's launches in the first ``generate`` call (the main path's
-    run, counted from 0)."""
+    Returns the launches of B4's tensor-core kernel in the first
+    ``generate`` call (the main path's run, counted from 0)."""
     from repro_torch import configs as C
     from repro_torch.models import transformer as T
     from repro_torch.train import serve
@@ -765,15 +783,17 @@ def serve_phase(label: str, arch: str, batch: int, prompt_len: int,
         torch.cuda.synchronize()
         counts = {name: n for ops in (fa_ops, *other_ops)
                   for name, n in ops.LAUNCHES.items()}
-        want = {name: cfg.n_layers if name == "flash_attention" else 0
+        want = {name: cfg.n_layers if name in ("flash_attention",
+                                               "flash_attention_tc") else 0
                 for name in counts}
         check(counts == want, f"serve-{label}: launches {counts}, expected "
-              f"{want} (one B4 launch per layer in the prefill)")
+              f"{want} (one launch of B4's tensor-core kernel per layer in "
+              "the prefill)")
         check(tuple(toks.shape) == (batch, gen_len), "token shape")
         check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
               "token ids out of the vocabulary")
         runs.append((toks, time.perf_counter() - t0,
-                     counts["flash_attention"]))
+                     counts["flash_attention_tc"]))
     check(torch.equal(runs[0][0], runs[1][0]),
           f"serve-{label}: two greedy generate calls differ")
 
@@ -863,14 +883,18 @@ def main() -> int:
 
     t0 = time.perf_counter()
     procs = build.start_builds([sf_kernel.SOURCE, ra_kernel.SOURCE,
-                                fa_kernel.SOURCE])
+                                *fa_kernel.SOURCES])
     logs = [(Path(p.args[-1]).name, build.finish_builds([p])) for p in procs]
     sf_kernel._lib()
     ra_kernel._lib()
     fa_kernel._lib()
+    fa_kernel._lib_tc()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs:
         print(f"  ptxas {name}: {ptxas_summary(log)}", flush=True)
+        for line in log.splitlines():
+            if "warning" in line.lower():
+                print(f"    {line.strip()}", flush=True)
 
     cfg = dataclasses.replace(C.get("tinyllama-1.1b"), n_layers=LAYERS)
     params = T.init_params(cfg, seed=0, device="cuda")
@@ -895,11 +919,11 @@ def main() -> int:
     del params, batches, held
     torch.cuda.empty_cache()
 
-    b4 = flash_checks(fa_ops, fa_ref)
-    b4["full"]["launches"] = serve_phase("full", *SERVE_FULL, fa_ops, fa_ref,
-                                         (ops, ra_ops))
-    b4["swa"]["launches"] = serve_phase("swa", *SERVE_SWA, fa_ops, fa_ref,
-                                        (ops, ra_ops))
+    b4, b4_err = flash_checks(fa_ops, fa_ref)
+    launches_tc = {label: serve_phase(label, *cell, fa_ops, fa_ref,
+                                      (ops, ra_ops))
+                   for label, cell in (("full", SERVE_FULL),
+                                       ("swa", SERVE_SWA))}
 
     source = "src/repro_torch/kernels/safeguard_filter/csrc/safeguard_filter.cu"
     replaces = {"pairwise_sqdist": "src/repro/kernels/safeguard_filter/"
@@ -914,12 +938,23 @@ def main() -> int:
         source="src/repro_torch/kernels/robust_agg/csrc/robust_agg.cu",
         replaces="src/repro/kernels/robust_agg/kernel.py:42",
         launches=b3_launches, **b3))
-    table.append(dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/flash_attention/csrc/"
-               "flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:82",
-        **b4["full"], swa=b4["swa"]))
+    # B4 has two kernels: bfloat16 (the model's dtype) on the tensor
+    # cores, float32 on the CUDA cores.  Each entry holds serve-full's
+    # numbers and serve-swa's under "swa"; the float32 kernel is on no
+    # serve path (it launches 0 times there) and is timed on the serve
+    # shapes' projections cast to float32.
+    for name, dt, src, n in (
+            ("flash_attention_tc", "bf16", "flash_attention_tc.cu",
+             launches_tc),
+            ("flash_attention_f32", "f32", "flash_attention.cu",
+             {"full": 0, "swa": 0})):
+        err = b4_err[torch.bfloat16 if dt == "bf16" else torch.float32]
+        table.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/flash_attention/csrc/{src}",
+            replaces="src/repro/kernels/flash_attention/kernel.py:82",
+            launches=n["full"], max_abs_err=err, **b4["full"][dt],
+            swa=dict(launches=n["swa"], **b4["swa"][dt])))
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,30 +1,31 @@
 // Causal flash attention with GQA and a sliding window, for Hopper
-// (sm_90a), bound to Python with ctypes.
+// (sm_90a), for float32 q, k and v, bound to Python with ctypes.
 //
 // Replaces the Pallas TPU kernel of
 // src/repro/kernels/flash_attention/kernel.py:82
-//   flash_attention_kernel / _flash_kernel (B4): for q (B, H, L, D) and
-//   k, v (B, K, L, D), each query row attends causally to the keys of kv
-//   head h / (H / K), within the last `window` positions when window > 0;
-//   online softmax over key tiles in ascending order with float32 running
-//   max, sum and output accumulator; output in q's dtype.
+//   flash_attention_kernel / _flash_kernel (B4) for float32 inputs: for
+//   q (B, H, L, D) and k, v (B, K, L, D), each query row attends causally
+//   to the keys of kv head h / (H / K), within the last `window` positions
+//   when window > 0; online softmax over key tiles in ascending order with
+//   float32 running max, sum and output accumulator; output in float32.
+//   bfloat16 inputs, which the model passes, go to the tensor-core kernel
+//   of flash_attention_tc.cu.  This one serves the float32 checks: the
+//   tensor cores would take float32 only as TF32, whose 10-bit mantissa
+//   breaks the float32 tolerance of 2e-5.
 //
-// Semantics are the Pallas kernel's: q, k and v upcast to float32, scores
-// times 1/sqrt(D), the finite -1e30 mask for kpos > qpos and, with a
-// window, for kpos <= qpos - window; p = exp(s - m_new) kept in float32;
-// out = acc / max(l, 1e-30).  A row whose keys in a tile are all masked
-// before it has seen a valid key gets p = exp(0) = 1 there; the tiles go in
-// ascending order and the row's own key always comes later, where
-// alpha = exp(-1e30 - m) = 0 clears what was added.  That is the TPU
-// kernel's behaviour, kept as it is.
+// Semantics are the Pallas kernel's: scores times 1/sqrt(D), the finite
+// -1e30 mask for kpos > qpos and, with a window, for kpos <= qpos - window;
+// p = exp(s - m_new) kept in float32; out = acc / max(l, 1e-30).  A row
+// whose keys in a tile are all masked before it has seen a valid key gets
+// p = exp(0) = 1 there; the tiles go in ascending order and the row's own
+// key always comes later, where alpha = exp(-1e30 - m) = 0 clears what was
+// added.  That is the TPU kernel's behaviour, kept as it is.
 //
 // What bounds it on an H100: operations.  Causal attention does 4*D
 // floating-point operations per reachable (query, key) pair on data that
 // is read once: at the prefill shapes (L = 1984 and 8192, D = 64) that is
-// hundreds of operations per byte, so even the bf16 tensor-core peak is
-// the limit, not device memory.  This first version computes in IEEE
-// float32 FMAs on the CUDA cores (67 TFLOP/s at most), not on the tensor
-// cores; wgmma, TMA and bf16 products are later work.
+// hundreds of operations per byte.  In IEEE float32 the limit is the CUDA
+// cores' FMA rate (67 TFLOP/s).
 //
 // What the design does about it (simple first):
 //   * one block per (q tile of BQ = 64 rows, head h, batch b); the TPU's
@@ -39,9 +40,9 @@
 //     score is their partial dot products added by a butterfly of
 //     __shfl_xor_sync, so every thread of the row holds the same bits of
 //     s, m and l;
-//   * each key tile of K and V is converted to float32 once into shared
-//     memory; a thread reads its dims as float4 chunks interleaved with its
-//     row's other threads (chunk i * TPR + part), so a warp reads TPR
+//   * each key tile of K and V is copied once into shared memory; a
+//     thread reads its dims as float4 chunks interleaved with its row's
+//     other threads (chunk i * TPR + part), so a warp reads TPR
 //     neighbouring 16-byte words of one key: a broadcast, no bank conflict;
 //   * K and V are read through the GQA map h / (H / K), never copied up to
 //     H heads;
@@ -56,7 +57,6 @@
 // wrapper raises when it is not 0.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -70,11 +70,6 @@ struct Strides {
     int64_t b, h, l, d;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 // dims of a row that one thread holds, and threads of one query row
 template <int D>
 struct RowSplit {
@@ -82,10 +77,10 @@ struct RowSplit {
     static constexpr int TPR = D / DS;
 };
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(BQ * RowSplit<D>::TPR)
-flash_kernel(const T* __restrict__ q, Strides sq, const T* __restrict__ k, Strides sk,
-             const T* __restrict__ v, Strides sv, T* __restrict__ out, Strides so, int group,
+flash_kernel(const float* __restrict__ q, Strides sq, const float* __restrict__ k, Strides sk,
+             const float* __restrict__ v, Strides sv, float* __restrict__ out, Strides so, int group,
              int64_t L, int64_t window, float scale, int n_q_tiles) {
     constexpr int DS = RowSplit<D>::DS;
     constexpr int TPR = RowSplit<D>::TPR;
@@ -103,13 +98,13 @@ flash_kernel(const T* __restrict__ q, Strides sq, const T* __restrict__ k, Strid
 
     // this thread's dims of its query row, chunk c = i * TPR + part
     float qr[DS];
-    const T* qrow = q + b * sq.b + h * sq.h + qpos * sq.l;
+    const float* qrow = q + b * sq.b + h * sq.h + qpos * sq.l;
 #pragma unroll
     for (int i = 0; i < C4; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             const int64_t d = (int64_t)(i * TPR + part) * 4 + e;
-            qr[i * 4 + e] = qpos < L ? to_f32(qrow[d * sq.d]) : 0.f;
+            qr[i * 4 + e] = qpos < L ? qrow[d * sq.d] : 0.f;
         }
 
     float acc[DS];
@@ -117,8 +112,8 @@ flash_kernel(const T* __restrict__ q, Strides sq, const T* __restrict__ k, Strid
     for (int i = 0; i < DS; ++i) acc[i] = 0.f;
     float m = NEG, l = 0.f;
 
-    const T* kbase = k + b * sk.b + kh * sk.h;
-    const T* vbase = v + b * sv.b + kh * sv.h;
+    const float* kbase = k + b * sk.b + kh * sk.h;
+    const float* vbase = v + b * sv.b + kh * sv.h;
     float* ksf = reinterpret_cast<float*>(&ks[0][0]);
     float* vsf = reinterpret_cast<float*>(&vs[0][0]);
 
@@ -133,8 +128,8 @@ flash_kernel(const T* __restrict__ q, Strides sq, const T* __restrict__ k, Strid
             const int64_t kp = k_start + e / D, d = e % D;
             float kx = 0.f, vx = 0.f;
             if (kp < L) {
-                kx = to_f32(kbase[kp * sk.l + d * sk.d]);
-                vx = to_f32(vbase[kp * sv.l + d * sv.d]);
+                kx = kbase[kp * sk.l + d * sk.d];
+                vx = vbase[kp * sv.l + d * sv.d];
             }
             ksf[e] = kx;
             vsf[e] = vx;
@@ -190,59 +185,48 @@ flash_kernel(const T* __restrict__ q, Strides sq, const T* __restrict__ k, Strid
 
     if (qpos < L) {
         const float lc = fmaxf(l, 1e-30f);
-        T* orow = out + b * so.b + h * so.h + qpos * so.l;
+        float* orow = out + b * so.b + h * so.h + qpos * so.l;
 #pragma unroll
         for (int i = 0; i < C4; ++i)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int64_t d = (int64_t)(i * TPR + part) * 4 + e;
-                store(orow + d * so.d, acc[i * 4 + e] / lc);
+                orow[d * so.d] = acc[i * 4 + e] / lc;
             }
     }
 }
 
-template <int D, typename T>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, const int64_t* st,
            int64_t B, int64_t H, int64_t K, int64_t L, int64_t window, cudaStream_t stream) {
     const Strides sq{st[0], st[1], st[2], st[3]}, sk{st[4], st[5], st[6], st[7]},
         sv{st[8], st[9], st[10], st[11]}, so{st[12], st[13], st[14], st[15]};
     const int n_q_tiles = (int)((L + BQ - 1) / BQ);
     const float scale = (float)(1.0 / sqrt((double)D));   // as f32(1.0 / math.sqrt(D))
-    flash_kernel<D, T><<<dim3(n_q_tiles, (unsigned)H, (unsigned)B), BQ * RowSplit<D>::TPR, 0, stream>>>(
-        static_cast<const T*>(q), sq, static_cast<const T*>(k), sk, static_cast<const T*>(v), sv,
-        static_cast<T*>(out), so, (int)(H / K), L, window, scale, n_q_tiles);
+    flash_kernel<D><<<dim3(n_q_tiles, (unsigned)H, (unsigned)B), BQ * RowSplit<D>::TPR, 0, stream>>>(
+        static_cast<const float*>(q), sq, static_cast<const float*>(k), sk,
+        static_cast<const float*>(v), sv, static_cast<float*>(out), so, (int)(H / K), L, window, scale, n_q_tiles);
     return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(int64_t D, const void* q, const void* k, const void* v, void* out,
-             const int64_t* st, int64_t B, int64_t H, int64_t K, int64_t L, int64_t window,
-             cudaStream_t stream) {
-    if (D == 16) return launch<16, T>(q, k, v, out, st, B, H, K, L, window, stream);
-    if (D == 32) return launch<32, T>(q, k, v, out, st, B, H, K, L, window, stream);
-    if (D == 64) return launch<64, T>(q, k, v, out, st, B, H, K, L, window, stream);
-    if (D == 128) return launch<128, T>(q, k, v, out, st, B, H, K, L, window, stream);
-    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (B, H, L, D), k and v (B, K, L, D), out (B, H, L, D), all of one dtype
-// (0 = float32, 1 = bfloat16).  strides: 16 element strides, (b, h, l, d)
-// of q, k, v and out in that order.  K divides H; D in {16, 32, 64, 128};
-// window 0 means causal only.
+// q (B, H, L, D), k and v (B, K, L, D), out (B, H, L, D), all float32.
+// strides: 16 element strides, (b, h, l, d) of q, k, v and out in that
+// order.  K divides H; D in {16, 32, 64, 128}; window 0 means causal only.
 int fa_flash_attention(const void* q, const void* k, const void* v, void* out,
-                       const int64_t* strides, int dtype, int64_t B, int64_t H, int64_t K,
-                       int64_t L, int64_t D, int64_t window, void* stream) {
+                       const int64_t* strides, int64_t B, int64_t H, int64_t K, int64_t L,
+                       int64_t D, int64_t window, void* stream) {
     if (B < 1 || B > 65535 || H < 1 || H > 65535 || K < 1 || H % K != 0 || L < 1 ||
         (L + BQ - 1) / BQ > 0x7fffffff || window < 0)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-    if (dtype == 0) return dispatch<float>(D, q, k, v, out, strides, B, H, K, L, window, st);
-    if (dtype == 1)
-        return dispatch<__nv_bfloat16>(D, q, k, v, out, strides, B, H, K, L, window, st);
+    if (D == 16) return launch<16>(q, k, v, out, strides, B, H, K, L, window, st);
+    if (D == 32) return launch<32>(q, k, v, out, strides, B, H, K, L, window, st);
+    if (D == 64) return launch<64>(q, k, v, out, strides, B, H, K, L, window, st);
+    if (D == 128) return launch<128>(q, k, v, out, strides, B, H, K, L, window, st);
     return (int)cudaErrorInvalidValue;
 }
 

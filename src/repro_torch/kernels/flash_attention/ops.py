@@ -2,21 +2,26 @@
 ``repro.kernels.flash_attention.ops``): causal attention with GQA and an
 optional sliding window over q (B, H, L, D) and k, v (B, K, L, D).
 
-Dispatch is on the tensors' device and nothing else:
+Dispatch is on the tensors' device, then on their dtype:
 
   * CPU tensors go to the plain PyTorch version in ``ref.py``;
-  * CUDA tensors go to the hand-written CUDA kernel (``kernel.py``), after
-    checks of dtype, shape and head counts that raise on what the kernel
-    does not take.  There is no fallback.
+  * bfloat16 CUDA tensors go to the tensor-core kernel
+    (``csrc/flash_attention_tc.cu``), which reads them through TMA and so
+    raises ``ValueError`` on a layout TMA cannot address;
+  * float32 CUDA tensors go to the CUDA-core kernel
+    (``csrc/flash_attention.cu``);
+  * anything else raises.  There is no fallback from one kernel to the
+    other, or to the plain version.
 
-The kernel masks the ragged edge of L itself, so unlike the reference's
-wrapper this one pads nothing.  ``LAUNCHES`` counts kernel launches, one
-per wrapper call that reached the kernel.
+The kernels mask the ragged edge of L themselves, so unlike the
+reference's wrapper this one pads nothing.  ``LAUNCHES`` counts kernel
+launches, one per wrapper call that reached a kernel: ``flash_attention``
+in all, and each kernel apart.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -24,8 +29,10 @@ from repro_torch.kernels.common import check_dtype
 from repro_torch.kernels.flash_attention import kernel as _k
 from repro_torch.kernels.flash_attention import ref
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0,
+                            "flash_attention_f32": 0}
 DTYPES = (torch.float32, torch.bfloat16)
+TMA_ALIGN = 16      # bytes: TMA's alignment of the start and of each stride
 
 
 def reset_launch_counts() -> None:
@@ -69,6 +76,30 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
                          f"{_k.HEAD_DIMS}")
 
 
+def tma_strides(q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> Tuple[int, ...]:
+    """The 12 element strides (b, h, l, d of q, k, v) that the
+    tensor-core kernel's tensor maps take.  Raise ``ValueError`` unless TMA
+    can address each tensor: last-dim stride 1, every other stride a
+    multiple of 16 bytes, the start on 16 bytes.  The stride of a dim of
+    size 1 is never followed, so it is given as 16 bytes."""
+    out = []
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        size = t.element_size()
+        if t.stride(3) != 1 or t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"flash_attention({name}): the tensor-core kernel "
+                             f"needs a last-dim stride of 1 and a 16-byte "
+                             f"aligned start, got strides {t.stride()}")
+        st = [s if n > 1 else TMA_ALIGN // size
+              for n, s in zip(t.shape[:3], t.stride()[:3])]
+        if any(s <= 0 or s * size % TMA_ALIGN for s in st):
+            raise ValueError(f"flash_attention({name}): strides {t.stride()} "
+                             f"are not multiples of {TMA_ALIGN} bytes, which "
+                             f"the tensor-core kernel's TMA loads need")
+        out += [*st, 1]
+    return tuple(out)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int = 0) -> torch.Tensor:
     """Causal (``window`` > 0: sliding-window) attention, GQA head map
@@ -82,6 +113,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: unsupported devices "
                          f"{sorted(str(d) for d in devices)}")
     check_kernel_inputs(q, k, v)
-    out = _k.flash_attention(q, k, v, window=window)
+    if q.dtype == torch.bfloat16:
+        out = _k.flash_attention_tc(q, k, v, window=window,
+                                    strides=tma_strides(q, k, v))
+        LAUNCHES["flash_attention_tc"] += 1
+    else:
+        out = _k.flash_attention(q, k, v, window=window)
+        LAUNCHES["flash_attention_f32"] += 1
     LAUNCHES["flash_attention"] += 1
     return out

@@ -157,6 +157,9 @@ def test_robust_kernel_refuses_what_it_cannot_take(cuda):
 
 FLASH_TOL = {"f32": 2e-5, "bf16": 2e-2}
 FLASH_BF16_RTOL = 2.0 ** -7
+# the kernel each dtype goes to: bfloat16 to the tensor cores, float32 to
+# the CUDA cores
+FLASH_KERNEL = {"bf16": "flash_attention_tc", "f32": "flash_attention_f32"}
 
 
 def _qkv(cuda, B, H, K, L, D, dt, seed):
@@ -178,9 +181,11 @@ def _qkv(cuda, B, H, K, L, D, dt, seed):
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_flash_attention_kernel_matches_plain(cuda, B, H, K, L, D, win, dt):
     q, k, v = _qkv(cuda, B, H, K, L, D, dt, B * H + L + D + win)
-    before = fa_ops.LAUNCHES["flash_attention"]
+    name = FLASH_KERNEL[dt]
+    before = fa_ops.LAUNCHES["flash_attention"], fa_ops.LAUNCHES[name]
     out = fa_ops.flash_attention(q, k, v, window=win)
-    assert fa_ops.LAUNCHES["flash_attention"] == before + 1
+    assert (fa_ops.LAUNCHES["flash_attention"],
+            fa_ops.LAUNCHES[name]) == (before[0] + 1, before[1] + 1)
     assert out.dtype == q.dtype and out.shape == q.shape
     want = fa_ref.attention(q, k, v, window=win).float()
     torch.testing.assert_close(out.float(), want, atol=FLASH_TOL[dt], rtol=0)
@@ -222,3 +227,54 @@ def test_flash_attention_kernel_refuses_what_it_cannot_take(cuda):
         fa_ops.flash_attention(q[:, :3], k, v)
     with pytest.raises(ValueError):
         fa_ops.flash_attention(q, k.cpu(), v)
+
+
+@pytest.mark.parametrize("B,H,K,L,D,win", [
+    (2, 8, 2, 1040, 64, 0),
+    (1, 4, 1, 700, 64, 33),
+    (1, 2, 2, 300, 128, 50),
+])
+def test_flash_attention_tc_kernel_repeats_its_bits(cuda, B, H, K, L, D, win):
+    """No atomics and no split of the keys: two launches on the same
+    inputs give the same bits."""
+    q, k, v = _qkv(cuda, B, H, K, L, D, "bf16", 11 + win)
+    first = fa_ops.flash_attention(q, k, v, window=win)
+    torch.testing.assert_close(fa_ops.flash_attention(q, k, v, window=win),
+                               first, atol=0, rtol=0)
+
+
+def test_flash_attention_tc_kernel_serve_full_shape_wide_window(cuda):
+    """The serve-full prefill's shape (B=4, H=32, K=4, L=1984, D=64) as the
+    model passes it, transpose views of (B, L, H, D) projections, with a
+    window of 4096 > L: the same function as causal attention."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((4, 1984, n, 64), generator=gen, device=cuda,
+                           dtype=torch.bfloat16).transpose(1, 2)
+               for n in (32, 4, 4))
+    before = fa_ops.LAUNCHES["flash_attention_tc"]
+    out = fa_ops.flash_attention(q, k, v, window=4096)
+    assert fa_ops.LAUNCHES["flash_attention_tc"] == before + 1
+    assert out.transpose(1, 2).is_contiguous()
+    want = fa_ref.attention(q, k, v, window=4096).float()
+    torch.testing.assert_close(out.float(), want, atol=FLASH_TOL["bf16"],
+                               rtol=0)
+    torch.testing.assert_close(out.float(), want, atol=FLASH_TOL["f32"],
+                               rtol=FLASH_BF16_RTOL)
+    torch.testing.assert_close(out, fa_ops.flash_attention(q, k, v),
+                               atol=0, rtol=0)
+
+
+def test_flash_attention_tc_kernel_refuses_what_tma_cannot_address(cuda):
+    """bfloat16 goes through TMA: a last-dim stride other than 1, or a
+    stride that is not a multiple of 16 bytes, raises ValueError before
+    any launch."""
+    q, k, v = _qkv(cuda, 1, 4, 2, 64, 64, "bf16", 0)
+    before = dict(fa_ops.LAUNCHES)
+    qt = q.transpose(2, 3).contiguous().transpose(2, 3)    # d stride 64
+    with pytest.raises(ValueError, match="last-dim stride"):
+        fa_ops.flash_attention(qt, k, v)
+    wide = torch.zeros((1, 4, 64, 68), device=cuda, dtype=torch.bfloat16)
+    wide[..., :64] = q                                      # l stride 68
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        fa_ops.flash_attention(wide[..., :64], k, v)
+    assert fa_ops.LAUNCHES == before

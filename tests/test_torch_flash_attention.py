@@ -5,7 +5,11 @@ and its ``ref.attention``, on the same numpy inputs.
 Tolerances are the JAX package's own for its kernel against its
 reference (``tests/test_kernels.py``): 2e-5 in float32, where only the
 order of the sums differs, and 2e-2 in bfloat16, where the output rounds
-once and the JAX ``ref`` also rounds p to bfloat16 before ``p @ v``."""
+once and the JAX ``ref`` also rounds p to bfloat16 before ``p @ v``.
+
+Also on the CPU: the tensor maps' stride checks of the bfloat16 kernel
+(``ops.tma_strides``) and an emulation of that kernel's arithmetic,
+which shows why it splits p into two bfloat16 halves."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -77,7 +81,9 @@ def test_cpu_path_launches_nothing():
     (_, _, _), (q, k, v) = _inputs(1, 4, 2, 64, 16, "f32", 0)
     ops.reset_launch_counts()
     ops.flash_attention(q, k, v, window=8)
-    assert ops.LAUNCHES == {"flash_attention": 0}
+    ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), window=8)
+    assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_tc": 0,
+                            "flash_attention_f32": 0}
 
 
 def test_wrapper_refuses_what_does_not_fit():
@@ -162,3 +168,96 @@ def test_reference_paths_diverge_in_bf16():
     for a, b in ((port, pallas), (port, blocked), (port, dense),
                  (pallas, dense), (blocked, dense)):
         np.testing.assert_allclose(a, b, atol=2e-2, rtol=0)
+
+
+
+def test_tma_strides_of_the_models_views():
+    """The tensor-core kernel's tensor maps take the caller's strides: a
+    transpose(1, 2) view of (B, L, H, D) projections passes as it is; the
+    stride of a dim of size 1 is never followed and is given as 16
+    bytes."""
+    x = torch.zeros((2, 300, 8, 64), dtype=torch.bfloat16).transpose(1, 2)
+    kv = torch.zeros((1, 300, 2, 64), dtype=torch.bfloat16).transpose(1, 2)
+    assert ops.tma_strides(x, x, x) == (300 * 8 * 64, 64, 8 * 64, 1) * 3
+    assert ops.tma_strides(x[:1], kv, kv)[4:8] == (8, 64, 2 * 64, 1)
+
+
+def test_tma_strides_refuse_what_tma_cannot_address():
+    q = torch.zeros((1, 4, 64, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="last-dim stride"):
+        ops.tma_strides(q.transpose(2, 3).contiguous().transpose(2, 3), q, q)
+    wide = torch.zeros((1, 4, 64, 68), dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        ops.tma_strides(q, wide, q)
+    flat = torch.zeros(4 * 64 * 64 + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned start"):
+        ops.tma_strides(q, q, flat[1:].view(1, 4, 64, 64))
+
+
+# The tensor-core kernel's arithmetic, emulated in float32 on the CPU: per
+# key tile of BK (128, or 64 at D = 128), s = q . k of the bfloat16 inputs
+# in float32 times f32(log2(e) / sqrt(D)), the -1e30 masks, p and alpha as
+# 2^(x - m_new), l summed from the float32 p, and p @ v with p in
+# bfloat16: split as hi = bf16(p), lo = bf16(p - hi) (what the kernel
+# does), or rounded once (what it does not do).  Each is held against
+# ``ref.attention`` in bfloat16 by the card's elementwise bound,
+# 2e-5 + 2^-7 |ref|.
+
+LOG2E = 1.4426950408889634
+EMULATED = [(1, 4, 1, 256, 64, 96), (2, 2, 2, 200, 32, 0),
+            (1, 8, 2, 1040, 16, 0), (1, 4, 2, 1984, 64, 0),
+            (1, 4, 1, 700, 64, 33), (1, 2, 2, 300, 128, 50)]
+
+
+def _emulate_tc(q, k, v, window: int, split: bool) -> torch.Tensor:
+    B, H, L, D = q.shape
+    G = H // k.shape[1]
+    bk = 64 if D == 128 else 128
+    scale_log2 = torch.tensor(LOG2E / np.sqrt(D), dtype=torch.float32)
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(G, 1) for x in (k, v))
+    m = torch.full((B, H, L, 1), ref.NEG)
+    l = torch.zeros((B, H, L, 1))
+    acc = torch.zeros((B, H, L, D))
+    qpos = torch.arange(L)[:, None]
+    for k0 in range(0, L, bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        s = (qf @ kt.transpose(-1, -2)) * scale_log2
+        kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        ok = kpos <= qpos
+        if window:
+            ok &= kpos > qpos - window
+        s = s.masked_fill(~ok, ref.NEG)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = hi @ vt
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ vt
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).bfloat16()
+
+
+def _bf16_excess(out: torch.Tensor, want: torch.Tensor) -> float:
+    o, w = out.float(), want.float()
+    return float(((o - w).abs() / (2e-5 + 2.0 ** -7 * w.abs())).max())
+
+
+@pytest.mark.parametrize("B,H,K,L,D,win", EMULATED)
+def test_tc_arithmetic_with_split_p_holds_the_bf16_bound(B, H, K, L, D, win):
+    (_, _, _), (q, k, v) = _inputs(B, H, K, L, D, "bf16", L + D + win)
+    want = ref.attention(q, k, v, window=win)
+    assert _bf16_excess(_emulate_tc(q, k, v, win, split=True), want) <= 1.0
+
+
+@pytest.mark.parametrize("B,H,K,L,D,win", EMULATED)
+def test_tc_arithmetic_with_p_rounded_once_breaks_the_bf16_bound(
+        B, H, K, L, D, win):
+    """Why the kernel pays for a second product: p rounded once to
+    bfloat16 puts outputs many bfloat16 steps off the plain version."""
+    (_, _, _), (q, k, v) = _inputs(B, H, K, L, D, "bf16", L + D + win)
+    want = ref.attention(q, k, v, window=win)
+    assert _bf16_excess(_emulate_tc(q, k, v, win, split=False), want) > 10.0
